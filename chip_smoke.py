@@ -5,21 +5,31 @@
 
 Phases, each printed as one JSON line with its seconds:
 
-1. device  — requires CUDA; the card's name and power limit.
+1. device  — requires CUDA; the card's name, power limit, SM count and
+             largest SM clock.
 2. build   — nvcc builds the hand-written kernels from the checkout's
              sources; prints ptxas's registers, shared memory and spills.
-3. kernel  — every kernel against its plain PyTorch version on the card,
-             bit for bit, at the chunked screen's shape, at edge lengths
-             and on each batch of the staged gut screen; the kernel's
-             time, the plain version's time and the kernel's bound, at the
-             chunk shape and summed over one staged screen.
+3. kernel  — every kernel against its plain PyTorch version on the card:
+             ``kmer_hashes`` bit for bit and ``screen_count`` count for
+             count (counts and valid-window total), at the edge cases (k at
+             Murmur's block and tail boundaries, lengths around a thread's
+             run of windows and not a multiple of 4, 8 or 16, N runs on run
+             boundaries, an all-padding row, every window or none past the
+             threshold, one key), ``kmer_hashes`` at the chunked screen's
+             shape and ``screen_count`` on each batch of the staged gut
+             screen; each kernel's time, its plain version's time and its
+             bound (see :func:`window_ops`), ``screen_count`` summed over
+             one staged screen, with the survivors of the threshold.
 4. slice   — contigs -> staged upload -> sketch screen -> candidate limit
              on the in-repo synthetic CAMI world (validation/work_cami_suite:
              sketch1-3 and the camisyn_gut contigs), three times: with the
-             kernel, with the plain hash, and through the chunked path.
-             All screen files must be byte-identical across the three, and
-             the kernel must have been launched on the staged and chunked runs.
-             Then one more staged screen under torch.profiler.
+             kernel, with the plain count (ScreenEngine's ``count_fn``
+             default swapped), and through the chunked path. All screen files
+             must be byte-identical across the three, ``screen_count`` must
+             have been launched on the staged and chunked runs, and
+             ``kmer_hashes`` on none (the main path does not go through it).
+             Then one more staged screen under torch.profiler, with every
+             device activity.
 5. scale   — the same screen against a RefSeq-sized merged DB: sketch1-3
              plus 100,000 synthetic references x 1000 hashes made on the
              card from --seed (1e8 flat hashes); median of 3 screen-stage
@@ -37,6 +47,7 @@ from __future__ import annotations
 import argparse
 import filecmp
 import json
+import math
 import os
 import shutil
 import statistics
@@ -44,15 +55,17 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
-from hymet_tpu_torch.io.fasta import read_fasta
+from hymet_tpu_torch.io.fasta import pack_code_batch, read_fasta
 from hymet_tpu_torch.io.sketchdb import SketchDB, load_sketch_db
 from hymet_tpu_torch.ops import hash_kernels
-from hymet_tpu_torch.ops.hashing import kmer_hashes_torch, unpack_code_batch
-from hymet_tpu_torch.ops.sketch import flat_index_device
+from hymet_tpu_torch.ops.hash_kernels import count_hashes, screen_count_torch
+from hymet_tpu_torch.ops.hashing import SIGN, kmer_hashes_torch, unpack_code_batch
+from hymet_tpu_torch.ops.sketch import ScreenEngine, flat_index_device
 from hymet_tpu_torch.pipeline.candidates import limit_candidates_files
 from hymet_tpu_torch.pipeline.screen_stage import run_screen_stage
 from hymet_tpu_torch.pipeline.staged import StagedContigs
@@ -63,50 +76,111 @@ WORLD = os.path.join(REPO, "validation", "work_cami_suite")
 CONTIGS = os.path.join(WORLD, "data", "camisyn_gut", "contigs.fna")
 DB_LABELS = ["sketch1", "sketch2", "sketch3"]
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate, and the float32 rate of
-# the CUDA cores. The kernel's work is 64-bit integer work, for which the
-# data sheet gives no rate; the float32 rate stands in for it and is an
-# upper limit (a 64-bit multiply takes several 32-bit instructions), so
-# the operations bound is optimistic.
+# H100 SXM memory rate (NVIDIA data sheet) and 32-bit integer issue rates
+# per SM and clock (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0): add, compare, shift and logic 64;
+# multiply-add 64, on the FMA pipe beside the integer ALU; and at most one
+# warp instruction per scheduler and clock, 4 x 32 = 128. The card has no
+# 64-bit integer unit, so 64-bit work is counted in 32-bit instructions.
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
+ALU_PER_CLK, MAD_PER_CLK, ISSUE_PER_CLK = 64, 64, 128
 
 # The screen's chunk shape (RunConfig.screen_chunk_bp rows, 8 at a time).
 MAIN_B, MAIN_L, MAIN_K = 8, 1 << 20, 21
+# CUDA kernel names of the device passes screen_count fused: the unpack's
+# torch.stack, the standalone hash kernel, searchsorted, index_add_
+PASSES_FUSED = ("CatArrayBatchedCopy", "kmer_hash_kernel", "searchsorted", "indexFuncLargeIndex",
+                "indexFuncSmallIndex")
+# k at Murmur's block and tail boundaries; windows a thread owns in the
+# kernels (csrc/kmer_core.cuh kRun)
+EDGE_K = (15, 16, 17, 21, 24, 25, 32)
+RUN = 16
 
 
 def emit(phase: str, t0: float, **fields) -> None:
     print(json.dumps({"phase": phase, "seconds": round(time.perf_counter() - t0, 3), **fields}), flush=True)
 
 
-def hash_ops_per_window(k: int) -> int:
-    """64-bit integer operations the hash needs per window, counted from
-    the function rather than from this kernel's way of computing it: a
-    rolling update of the forward word, the reverse-complement word and
-    the invalid-base count, 12 (the kernel repacks every window from
-    scratch instead, 8 per base); the canonical compare and select 2;
-    per ASCII byte 5; per 16-byte Murmur block 24; the tail words 6 each;
-    and the finalization 21."""
+def window_ops(k: int, screen: bool) -> tuple:
+    """(ALU, multiply-add) 32-bit instructions the function needs per window,
+    counted from the function, not from a kernel's way of computing it.
+    A 64-bit add, logic op or shift counts 2, a 64-bit multiply by a
+    constant 3 (multiply-adds), a 64-bit compare or select 2:
+
+    - validity of the window: 1 (a bit test; the AND over k mask bits is
+      shared by a thread's run of 16 windows);
+    - the canonical 2-bit k-mer: the forward and reverse-complement words
+      4 each (a 64-bit shift out of the run's codes and a mask), their
+      compare 2: 10;
+    - the canonical string's ASCII words, ceil(k/8) of them: per word a
+      32-bit funnel shift per half for each of the two strings (4), the
+      select (2); the mask of the bytes past k (2); each new base's letter
+      in the forward and the reverse-complement string (2);
+    - per 16-byte Murmur block: ALU 16 (two rotates, two XORs into h, two
+      rotates of h, the two adds h1 += h2 and h2 += h1), multiply-adds 16
+      (k1 and k2 times a constant twice each, 3 each; ``h * 5 + c`` for h1
+      and h2, 2 each, the wide multiply-add taking the 64-bit constant as
+      its addend);
+    - per tail word (k & 15 > 0, and > 8): ALU 4, multiply-adds 6;
+    - finalisation: ALU 20 (the XOR of the 32-bit length into h1 and h2,
+      1 each; the two adds, 2 each; three shift-XORs ``h ^= h >> 33`` in
+      each fmix, 2 each, as the shifted word's high half is zero; the
+      final add, 2), multiply-adds 12 (two per fmix);
+    - the survivor filter of ``screen_count``: 3 (sign flip of the high
+      word and a 64-bit compare); for ``kmer_hashes`` instead the packing
+      of each code byte to 2 bits and its validity bit: 2.
+    """
+    nw = -(-k // 8)
     nblocks, tail = divmod(k, 16)
-    return 12 + 2 + 5 * k + 24 * nblocks + 6 * (tail > 8) + 6 * (tail > 0) + 21
+    alu = 1 + 10 + (6 * nw + 2) + 2 + 16 * nblocks + 4 * (tail > 8) + 4 * (tail > 0) + 20
+    mad = 16 * nblocks + 6 * (tail > 8) + 6 * (tail > 0) + 12
+    return alu + (3 if screen else 2), mad
 
 
-def hash_bound_ms(shapes, k: int) -> tuple:
-    """(least time in ms, what bounds it) for hashing [B, L] batches of
-    the given shapes: each code read once, each hash (8 B) and valid flag
-    (1 B) written once; the operations at the float32 CUDA-core rate."""
+def ops_ms(alu: float, mad: float, sms: int, clock_hz: float) -> float:
+    """Least time in ms for `alu` ALU and `mad` multiply-add instructions
+    spread over `sms` SMs at `clock_hz`."""
+    clocks = max(alu / ALU_PER_CLK, mad / MAD_PER_CLK, (alu + mad) / ISSUE_PER_CLK)
+    return clocks / sms / clock_hz * 1e3
+
+
+def hash_bound_ms(shapes, k: int, sms: int, clock_hz: float) -> tuple:
+    """(least time in ms, what bounds it) for ``kmer_hashes`` over [B, L]
+    batches of the given shapes: every window is hashed (each is written);
+    each code read once, each hash (8 B) and valid flag (1 B) written once."""
     n = sum(B * (L - k + 1) for B, L in shapes)
-    t_bytes = (sum(B * L for B, L in shapes) + 9 * n) / PEAK_BYTES_S
-    t_ops = n * hash_ops_per_window(k) / PEAK_OPS_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    t_bytes = (sum(B * L for B, L in shapes) + 9 * n) / PEAK_BYTES_S * 1e3
+    alu, mad = window_ops(k, screen=False)
+    t_ops = ops_ms(n * alu, n * mad, sms, clock_hz)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def screen_bound_ms(batches, k: int, sms: int, clock_hz: float) -> tuple:
+    """(least time in ms, what bounds it) for ``screen_count`` over batches
+    given as (input bytes, valid windows, survivors, F): the function is
+    counted only on the valid windows (nothing for positions the mask marks
+    as padding or invalid); packed and mask bytes read once, per survivor
+    one 8-byte key read and one 4-byte count written, and a binary search of
+    ceil(log2 F) steps of 6 ALU instructions."""
+    alu, mad = window_ops(k, screen=True)
+    nbytes = sum(b + 12 * s for b, _, s, _ in batches)
+    n_alu = sum(v * alu + s * 6 * max(1, math.ceil(math.log2(F))) for _, v, s, F in batches)
+    n_mad = sum(v * mad for _, v, _, _ in batches)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops_ms(n_alu, n_mad, sms, clock_hz)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls (CUDA events)."""
+    """Mean device time of fn() over `iters` back-to-back calls (CUDA
+    events). The card first sleeps about 50 us per call, so that the host
+    has enqueued the calls before they run: a kernel shorter than its
+    wrapper's host time is timed, not the host."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(100_000 * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -118,7 +192,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def profile_run(fn) -> dict:
     """One run of fn() under torch.profiler: its wall time, the device's
     busy time (CUDA kernels and copies, all on one stream), the idle
-    share, and the device activities that took longest."""
+    share, and every device activity (name, ms, count), longest first."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -129,9 +203,9 @@ def profile_run(fn) -> dict:
         wall = time.perf_counter() - t
     rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in rows) / 1e6
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    rows = sorted(rows, key=lambda e: -e.self_device_time_total)
     return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
-            "top_device_ms": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top]}
+            "device_ms": [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in rows]}
 
 
 def codes_with_n_runs(rng: np.random.Generator, B: int, L: int) -> np.ndarray:
@@ -145,9 +219,20 @@ def codes_with_n_runs(rng: np.random.Generator, B: int, L: int) -> np.ndarray:
     return codes
 
 
-def nvidia_smi_line() -> str:
+def edge_codes(rng: np.random.Generator, L: int) -> np.ndarray:
+    """[3, L] codes: N runs, N bases on the last base of a thread's run of
+    windows and on the first base of the next (row 1), and an all-padding
+    row 2."""
+    codes = codes_with_n_runs(rng, 3, L)
+    codes[1, RUN - 1 :: 3 * RUN] = 4
+    codes[1, 2 * RUN :: 3 * RUN] = 4
+    codes[2] = 4
+    return codes
+
+
+def nvidia_smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
@@ -164,42 +249,134 @@ def check_kernel(codes: torch.Tensor, k: int) -> float:
     return float((h.double() - h_ref.double()).abs().max())
 
 
-def phase_kernel(seed: int, cfg: RunConfig) -> dict:
+def new_counts(F: int) -> tuple:
+    return (torch.zeros(F, dtype=torch.int32, device="cuda"),
+            torch.zeros(1, dtype=torch.int64, device="cuda"))
+
+
+def check_count(packed, mask, L: int, k: int, flat, t: int) -> tuple:
+    """Raise unless screen_count's counts and valid total equal the plain
+    version's element for element; returns (largest absolute difference
+    (0.0), valid windows, hits)."""
+    got, want = new_counts(flat.shape[0]), new_counts(flat.shape[0])
+    hash_kernels.screen_count(packed, mask, L, k, flat, t, *got)
+    screen_count_torch(packed, mask, L, k, flat, t, *want)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(
+            f"screen_count kernel differs from the plain version at k={k}, L={L}, "
+            f"shape={list(packed.shape)}, F={flat.shape[0]}, t={t}"
+        )
+    err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+    return err, int(want[1]), int(want[0].sum())
+
+
+def survivors(packed, mask, L: int, k: int, t: int) -> int:
+    """The valid windows of a batch whose key is <= t."""
+    h, v = kmer_hashes_torch(unpack_code_batch(packed, mask, L), k)
+    return int((v & ((h ^ SIGN) <= t)).sum())
+
+
+def two_pass(packed, mask, L: int, k: int, flat, t: int, counts, total) -> None:
+    """screen_count's function the way the screen ran it before the kernel
+    fused it: unpack, the hash kernel, then the filter, searchsorted and
+    index_add_ as separate device passes."""
+    h, valid = hash_kernels.kmer_hashes(unpack_code_batch(packed, mask, L), k)
+    count_hashes(h, valid, flat, t, counts, total)
+
+
+def edge_keys(rng: np.random.Generator, packed, mask, L: int, k: int) -> list:
+    """(flat, t) cases for a batch: keys holding a sample of its valid
+    windows' keys plus two random ones, with t = the largest key, t at the
+    sign-flipped maximum (every valid window survives), t below every key
+    (none survives); and a single key that is one of the batch's (F = 1)."""
+    h, v = kmer_hashes_torch(unpack_code_batch(packed, mask, L), k)
+    q = (h[v] ^ SIGN).cpu().numpy()
+    extra = rng.integers(-(2**63), 2**63 - 1, 2, dtype=np.int64)
+    pick = q[rng.choice(q.size, min(q.size, 40), replace=False)] if q.size else q
+    flat = torch.from_numpy(np.unique(np.concatenate([pick, extra]))).cuda()
+    cases = [(flat, int(flat[-1])), (flat, 2**63 - 1), (flat, -(2**63))]
+    if q.size:
+        one = torch.from_numpy(q[:1].copy()).cuda()
+        cases.append((one, int(one[0])))
+    return cases
+
+
+def phase_kernel(seed: int, cfg: RunConfig, sms: int, clock_hz: float) -> dict:
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
-    cases = []
-    max_err = 0.0
-    for k in (15, 21, 32):
-        for B, L in [(MAIN_B, MAIN_L), (2, k), (2, k + 1), (2, 2048 + 20), (2, 3 * 2048 + 7)]:
-            codes = torch.from_numpy(codes_with_n_runs(rng, B, L)).cuda()
-            max_err = max(max_err, check_kernel(codes, k))
-            cases.append([k, B, L])
-    codes = torch.from_numpy(codes_with_n_runs(rng, MAIN_B, MAIN_L)).cuda()
-    ms = cuda_ms(lambda: hash_kernels.kmer_hashes(codes, MAIN_K))
-    plain_ms = cuda_ms(lambda: kmer_hashes_torch(codes, MAIN_K), iters=20, warmup=1)
-    bound_ms, bound_by = hash_bound_ms([(MAIN_B, MAIN_L)], MAIN_K)
+    cases, max_err = {"kmer_hash": [], "screen_count": []}, {"kmer_hash": 0.0, "screen_count": 0.0}
+    for k in EDGE_K:
+        for L in (k, k + 1, RUN + k - 1, RUN + k, 1003, 4096 + k + 5):
+            codes = edge_codes(rng, L)
+            max_err["kmer_hash"] = max(max_err["kmer_hash"], check_kernel(torch.from_numpy(codes).cuda(), k))
+            cases["kmer_hash"].append([k, *codes.shape])
+            packed, mask, _ = pack_code_batch(codes)
+            packed, mask = torch.from_numpy(packed).cuda(), torch.from_numpy(mask).cuda()
+            for flat, t in edge_keys(rng, packed, mask, L, k):
+                err, _, hits = check_count(packed, mask, L, k, flat, t)
+                max_err["screen_count"] = max(max_err["screen_count"], err)
+                cases["screen_count"].append([k, *codes.shape, int(flat.shape[0]), t, hits])
+    for k in (15, MAIN_K, 32):
+        codes = torch.from_numpy(codes_with_n_runs(rng, MAIN_B, MAIN_L)).cuda()
+        max_err["kmer_hash"] = max(max_err["kmer_hash"], check_kernel(codes, k))
+        cases["kmer_hash"].append([k, MAIN_B, MAIN_L])
+    hash_ms = cuda_ms(lambda: hash_kernels.kmer_hashes(codes, MAIN_K))
+    hash_plain_ms = cuda_ms(lambda: kmer_hashes_torch(codes, MAIN_K), iters=20, warmup=1)
+    hash_bound, hash_by = hash_bound_ms([(MAIN_B, MAIN_L)], MAIN_K, sms, clock_hz)
     del codes
     # the staged screen's own batches (the main path's shapes): each one
-    # checked bit for bit, and the kernel, the plain version and the
-    # bound summed over one screen's launches
-    staged = stage_contigs(cfg)
-    k = load_world_dbs()[0].k
-    shapes, screen = [], {"ms": 0.0, "plain_ms": 0.0}
+    # checked count for count; kernel, plain version, the earlier two-pass
+    # path and the bound summed over one screen's launches
+    staged, dbs = stage_contigs(cfg), load_world_dbs()
+    flat = flat_index_device(SketchDB.concat(dbs).hashes, torch.device("cuda"))[0]
+    k, t = dbs[0].k, int(flat[-1])
+    # where the kernel's time goes: the same launches with no survivor (t
+    # below every key) and with every position marked padding
+    screen = {"ms": 0.0, "plain_ms": 0.0, "two_pass_ms": 0.0, "no_survivor_ms": 0.0,
+              "padding_only_ms": 0.0, "positions": 0}
+    batches, shapes = [], []
     for packed, mask, _rows, L in staged.device:
-        codes = unpack_code_batch(packed, mask, L)
-        max_err = max(max_err, check_kernel(codes, k))
-        shapes.append(list(codes.shape))
-        cases.append([k, *codes.shape])
-        screen["ms"] += cuda_ms(lambda: hash_kernels.kmer_hashes(codes, k), iters=5, warmup=1)
-        screen["plain_ms"] += cuda_ms(lambda: kmer_hashes_torch(codes, k), iters=3, warmup=1)
-    screen["bound_ms"], screen["bound_by"] = hash_bound_ms(shapes, k)
-    emit("kernel", t0, name="kmer_hash", cases=cases, bit_identical=True,
-         shape=[MAIN_B, MAIN_L], k=MAIN_K, ms=ms, plain_ms=plain_ms,
-         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-         staged_screen={"batches": shapes, **screen})
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "staged_ms_per_screen": screen["ms"]}
+        err, valid, hits = check_count(packed, mask, L, k, flat, t)
+        max_err["screen_count"] = max(max_err["screen_count"], err)
+        surv = survivors(packed, mask, L, k, t)
+        batches.append((packed.numel() + mask.numel(), valid, surv, int(flat.shape[0])))
+        shapes.append([*packed.shape, L, valid, surv, hits])
+        screen["positions"] += 4 * packed.numel()
+        scratch = new_counts(flat.shape[0])
+        screen["ms"] += cuda_ms(lambda: hash_kernels.screen_count(packed, mask, L, k, flat, t, *scratch))
+        screen["no_survivor_ms"] += cuda_ms(
+            lambda: hash_kernels.screen_count(packed, mask, L, k, flat, -(2**63), *scratch))
+        padding = torch.zeros_like(mask)
+        screen["padding_only_ms"] += cuda_ms(
+            lambda: hash_kernels.screen_count(packed, padding, L, k, flat, t, *scratch))
+        screen["plain_ms"] += cuda_ms(lambda: screen_count_torch(packed, mask, L, k, flat, t, *scratch), iters=3, warmup=1)
+        screen["two_pass_ms"] += cuda_ms(lambda: two_pass(packed, mask, L, k, flat, t, *scratch), iters=5, warmup=1)
+    screen["bound_ms"], screen["bound_by"] = screen_bound_ms(batches, k, sms, clock_hz)
+    # the two-pass path shows every pass the fused kernel replaces, by the
+    # names phase 4 looks for
+    packed, mask, _rows, L = staged.device[0]
+    prof = profile_run(lambda: two_pass(packed, mask, L, k, flat, t, *new_counts(flat.shape[0])))
+    seen = sorted({p for name, _ms, _n in prof["device_ms"] for p in PASSES_FUSED if p in name})
+    if not set(PASSES_FUSED[:3]) <= set(seen) or not set(PASSES_FUSED[3:]) & set(seen):
+        raise AssertionError(f"the two-pass path's device passes are not all named as expected: {seen}")
+    screen["two_pass_passes"] = seen
+    screen["valid_windows"] = sum(b[1] for b in batches)
+    screen["survivors"] = sum(b[2] for b in batches)
+    emit("kernel", t0, cases=cases, identical=True, sms=sms, clock_mhz=clock_hz / 1e6,
+         kmer_hash={"shape": [MAIN_B, MAIN_L], "k": MAIN_K, "ms": hash_ms, "plain_ms": hash_plain_ms,
+                    "bound_ms": hash_bound, "bound_by": hash_by,
+                    "window_ops": window_ops(MAIN_K, screen=False)},
+         screen_count={"staged_screen": screen, "k": k, "F": int(flat.shape[0]),
+                       "window_ops": window_ops(k, screen=True),
+                       "batches": [["rows", "W", "L", "valid", "survivors", "hits"], *shapes]})
+    return {
+        "kmer_hash": {"max_abs_err": max_err["kmer_hash"], "ms": hash_ms, "plain_ms": hash_plain_ms,
+                      "bound_ms": hash_bound, "bound_by": hash_by},
+        "screen_count": {"max_abs_err": max_err["screen_count"], "ms": screen["ms"],
+                         "plain_ms": screen["plain_ms"], "bound_ms": screen["bound_ms"],
+                         "bound_by": screen["bound_by"]},
+    }
 
 
 def limit_stage(workdir: str, cfg: RunConfig) -> int:
@@ -229,16 +406,22 @@ def stage_contigs(cfg: RunConfig) -> StagedContigs:
     return StagedContigs(names, seqs, cfg.align_batch_pad, cfg.align_k + cfg.align_w, device="cuda")
 
 
-def screen(workdir: str, cfg: RunConfig, dbs, labels, staged, hash_fn=None):
+def screen(workdir: str, cfg: RunConfig, dbs, labels, staged):
     """The screen stage as ClassificationRun runs it (run.py:242-269)."""
-    kw = {"hash_fn": hash_fn} if hash_fn is not None else {}
     return run_screen_stage(
         dbs, [CONTIGS], workdir, initial_threshold=cfg.mash_thresh, db_labels=labels,
-        chunk_bp=cfg.screen_chunk_bp, staged=staged, device="cuda", **kw,
+        chunk_bp=cfg.screen_chunk_bp, staged=staged, device="cuda",
     )
 
 
-def run_slice(workdir: str, cfg: RunConfig, staged: bool, hash_fn) -> dict:
+def counting_with(count_fn):
+    """Context in which every ScreenEngine built counts with `count_fn`:
+    the engine's test seam, its default swapped, so a check drives the
+    same stage with the plain count."""
+    return mock.patch.dict(ScreenEngine.__init__.__kwdefaults__, count_fn=count_fn)
+
+
+def run_slice(workdir: str, cfg: RunConfig, staged: bool) -> dict:
     """contigs -> (staged upload) -> screen -> limit, in ClassificationRun's order."""
     times = {}
     t = time.perf_counter()
@@ -246,7 +429,7 @@ def run_slice(workdir: str, cfg: RunConfig, staged: bool, hash_fn) -> dict:
     torch.cuda.synchronize()
     times["upload_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    screen(workdir, cfg, load_world_dbs(), DB_LABELS, batches, hash_fn)
+    screen(workdir, cfg, load_world_dbs(), DB_LABELS, batches)
     torch.cuda.synchronize()
     times["screen_s"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -269,29 +452,42 @@ def phase_slice(tmp: str, cfg: RunConfig) -> tuple:
     t0 = time.perf_counter()
     runs = {}
     launches = {}
-    for tag, staged, hash_fn in (
-        ("kernel_staged", True, hash_kernels.kmer_hashes),
-        ("plain_staged", True, kmer_hashes_torch),
-        ("kernel_chunked", False, hash_kernels.kmer_hashes),
+    for tag, staged, count_fn in (
+        ("kernel_staged", True, hash_kernels.screen_count),
+        ("plain_staged", True, screen_count_torch),
+        ("kernel_chunked", False, hash_kernels.screen_count),
     ):
+        hash_kernels.screen_count.launches = 0
         hash_kernels.kmer_hashes.launches = 0
-        runs[tag] = run_slice(os.path.join(tmp, tag), cfg, staged, hash_fn)
-        launches[tag] = hash_kernels.kmer_hashes.launches
+        with counting_with(count_fn):
+            runs[tag] = run_slice(os.path.join(tmp, tag), cfg, staged)
+        launches[tag] = {"screen_count": hash_kernels.screen_count.launches,
+                         "kmer_hash": hash_kernels.kmer_hashes.launches}
     ref = os.path.join(tmp, "kernel_staged")
     files = screen_files(ref)
     if len(files) != 4 * len(DB_LABELS) + 1:
         raise AssertionError(f"unexpected screen outputs: {files}")
     for tag in ("plain_staged", "kernel_chunked"):
         same_files(ref, os.path.join(tmp, tag), files)
-    if launches["kernel_staged"] <= 0 or launches["kernel_chunked"] <= 0:
-        raise AssertionError(f"kmer_hash kernel not launched on the slice: {launches}")
-    if launches["plain_staged"] != 0:
+    if launches["kernel_staged"]["screen_count"] <= 0 or launches["kernel_chunked"]["screen_count"] <= 0:
+        raise AssertionError(f"screen_count kernel not launched on the slice: {launches}")
+    if launches["plain_staged"]["screen_count"] != 0:
         raise AssertionError("the plain run launched the kernel")
+    if any(n["kmer_hash"] for n in launches.values()):
+        raise AssertionError(f"the slice went through the standalone hash kernel: {launches}")
     selected = runs["kernel_staged"]["selected"]
     if selected <= 0:
         raise AssertionError("no genome selected")
     staged, dbs = stage_contigs(cfg), load_world_dbs()
     prof = profile_run(lambda: screen(os.path.join(tmp, "profiled"), cfg, dbs, DB_LABELS, staged))
+    # the screen's update is one screen_count launch a batch: none of the
+    # unpack's stack, the standalone hash, searchsorted or index_add_ passes
+    names = {name: count for name, _ms, count in prof["device_ms"]}
+    launched = sum(c for name, c in names.items() if "screen_count_kernel" in name)
+    gone = [name for name in names for pass_ in PASSES_FUSED if pass_ in name]
+    if launched != len(staged.device) or gone:
+        raise AssertionError(f"staged screen ran {launched} screen_count launches for "
+                             f"{len(staged.device)} batches, and {gone}")
     emit("slice", t0, files_identical=files, launches=launches, selected_genomes=selected,
          runs=runs, staged_screen_profile=prof)
     return ref, launches["kernel_staged"]
@@ -313,7 +509,7 @@ def synthetic_db(seed: int, n_refs: int = 100_000, s: int = 1000) -> SketchDB:
 
 
 def phase_scale(tmp: str, cfg: RunConfig, seed: int, small_ref: str, kernel_ms: float) -> None:
-    """`kernel_ms`: the kernel's device time for one staged screen, its
+    """`kernel_ms`: screen_count's device time for one staged screen, its
     launches timed alone (phase 3)."""
     t0 = time.perf_counter()
     synth = synthetic_db(seed)
@@ -349,9 +545,11 @@ def main() -> int:
         return 1
     t0 = time.perf_counter()
     name = torch.cuda.get_device_name(0)
-    smi = nvidia_smi_line()
+    smi = nvidia_smi("name,power.limit")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     emit("device", t0, name=name, count=torch.cuda.device_count(), nvidia_smi=smi,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         sms=sms, clock_max_sm_mhz=clock_mhz, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
     lib = hash_kernels.load_library()
@@ -359,22 +557,26 @@ def main() -> int:
          ptxas=[ln.strip() for ln in lib.log.splitlines() if "ptxas" in ln or "spill" in ln])
 
     cfg = RunConfig()
-    kernel = phase_kernel(args.seed, cfg)
-    kernel_ms = kernel.pop("staged_ms_per_screen")
+    kernels = phase_kernel(args.seed, cfg, sms, clock_mhz * 1e6)
     tmp = tempfile.mkdtemp(prefix="hymet_chip_smoke_")
     try:
         small_ref, launches = phase_slice(tmp, cfg)
-        phase_scale(tmp, cfg, args.seed, small_ref, kernel_ms)
+        phase_scale(tmp, cfg, args.seed, small_ref, kernels["screen_count"]["ms"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "kmer_hash", "route": "cuda",
-        "source": "hymet_tpu_torch/csrc/kmer_hash.cu",
-        "replaces": "hymet_tpu/ops/pallas_kernels.py:35",
-        "launches": launches, **kernel, "library_ms": None,
-    }]}))
+    print(json.dumps({"kernels": [
+        {"name": "kmer_hash", "route": "cuda", "source": "hymet_tpu_torch/csrc/kmer_hash.cu",
+         "replaces": "hymet_tpu/ops/pallas_kernels.py:35",
+         # off the main path since screen_count fused it: its count there is 0
+         "launches": launches["kmer_hash"], "main_path": False,
+         **kernels["kmer_hash"], "library_ms": None},
+        {"name": "screen_count", "route": "cuda", "source": "hymet_tpu_torch/csrc/screen_count.cu",
+         "replaces": "hymet_tpu/ops/pallas_kernels.py:35",
+         "launches": launches["screen_count"], "main_path": True,
+         **kernels["screen_count"], "library_ms": None},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,153 +1,130 @@
-// Canonical k-mer MurmurHash3 for the sketch screen, written by hand for Hopper.
+// Canonical k-mer MurmurHash3 of every window of a code batch, written by
+// hand for Hopper.
 //
-// Replaces hymet_tpu/ops/pallas_kernels.py::_hash_tile_kernel (kmer_hashes_pallas).
-// For every k-window of a [B, L] uint8 code batch (0-3 = ACGT, >= 4 invalid):
-//   valid  = no code >= 4 in the window;
-//   canon  = min(forward, reverse complement) of the 2-bit packed k-mer
-//            (codes taken & 3, so invalid windows still get a defined hash);
-//   hash   = MurmurHash3_x64_128 h1, seed 42, of canon's ASCII bytes
-//            (A=65 C=67 G=71 T=84), stored as the uint64 bit pattern in int64.
-// Output covers exactly the L - k + 1 windows of each row; no tile padding.
+// Replaces hymet_tpu/ops/pallas_kernels.py::_hash_tile_kernel
+// (kmer_hashes_pallas), as a standalone function: for every k-window of a
+// [B, L] uint8 code batch (0-3 = ACGT, >= 4 invalid)
+//   valid = no code >= 4 in the window;
+//   hash  = MurmurHash3_x64_128 h1, seed 42, of the canonical k-mer's ASCII
+//           bytes (codes taken & 3, so invalid windows still get a defined
+//           hash), stored as the uint64 bit pattern in int64.
+// The screen's main path runs the fused screen_count.cu instead; this
+// kernel is the counterpart the DB sketch build will call.
 //
-// What bounds it on an H100. The function needs about 170 64-bit integer
-// operations per window at k=21 (a rolling update of the packed words, the
-// ASCII bytes, Murmur) against 10 bytes of traffic (1 code in, 8 hash + 1 valid
-// out): just under the card's ~20 operations per byte balance point, so its
-// least time is set by memory. This kernel instead repacks every window from its
-// k codes (about 330 operations per window), which puts it over the balance
-// point: its own integer work bounds it. The design spends nothing on memory
-// tricks beyond reading each code from device memory once: a block stages its
-// blockDim + k - 1 codes in shared memory, and each thread (one per window)
-// reads its k codes from there. The TPU kernel's lane rolls and uint32 limb
-// arithmetic are gone: the card has native 64-bit shifts, compares and
-// multiplies. A rolling update across windows, reading 2-bit packed input and
-// fusing the count are later work.
+// What bounds it on an H100: about 110 32-bit integer instructions per
+// window at k = 21 (75 ALU, 34 multiply-add; chip_smoke.py::window_ops)
+// against 10 bytes of traffic (1 code in, 8 hash + 1 valid out), so the
+// integer pipes, not memory, set its least time. The design keeps the instruction stream short: a block stages its
+// codes once in shared memory as 2-bit words and validity bits (16 bytes a
+// thread, coalesced); each thread hashes a run of kRun windows with
+// kmer_core.cuh's shared work per run; the run's outputs, strided by kRun
+// across threads, go through shared memory (rows of kRun + 1, free of bank
+// conflicts) and leave coalesced.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "kmer_core.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxK = 32;
-constexpr uint64_t kSeed = 42;
-constexpr uint64_t kC1 = 0x87C37B91114253D5ull;
-constexpr uint64_t kC2 = 0x4CF5AD432745937Full;
+using namespace hymet;
 
-__device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
-  return (x << r) | (x >> (64 - r));
+// Four code bytes -> their four 2-bit codes (& 3) in the low byte.
+__device__ __forceinline__ uint32_t pack4(uint32_t w) {
+  uint32_t x = w & 0x03030303u;
+  x |= x >> 6;
+  return (x & 0xFu) | ((x >> 12) & 0xF0u);
 }
 
-__device__ __forceinline__ uint64_t fmix64(uint64_t k) {
-  k ^= k >> 33;
-  k *= 0xFF51AFD7ED558CCDull;
-  k ^= k >> 33;
-  k *= 0xC4CEB9FE1A85EC53ull;
-  k ^= k >> 33;
-  return k;
+// Four code bytes -> four validity bits (code < 4).
+__device__ __forceinline__ uint32_t valid4(uint32_t w) {
+  uint32_t v = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v |= static_cast<uint32_t>(((w >> (8 * q)) & 0xFCu) == 0) << q;
+  return v;
 }
 
+template <int NW>
 __global__ void __launch_bounds__(kThreads)
 kmer_hash_kernel(const uint8_t* __restrict__ codes, int64_t* __restrict__ hash,
-                 bool* __restrict__ valid, int L, int k) {
-  __shared__ uint8_t slab[kThreads + kMaxK - 1];
-  const int n = L - k + 1;
+                 bool* __restrict__ valid, int L, int k, bool vec) {
+  __shared__ uint32_t code_slab[kSlabWords];
+  __shared__ uint16_t mask16[kSlabWords];
+  __shared__ uint64_t out_hash[kThreads * (kRun + 1)];
+  __shared__ uint32_t out_valid[kThreads];
+  const int tid = threadIdx.x;
   const int row = blockIdx.y;
-  const int base = blockIdx.x * kThreads;
+  const long long b0 = static_cast<long long>(blockIdx.x) * kBlockWindows;
   const uint8_t* src = codes + static_cast<size_t>(row) * L;
-  for (int i = threadIdx.x; i < kThreads + k - 1; i += kThreads) {
-    const int p = base + i;
-    slab[i] = p < L ? src[p] : 4;
+
+  // 16 codes a step -> one code word and 16 validity bits; past the row,
+  // code 4 (invalid)
+  for (int i = tid; i < kSlabWords; i += kThreads) {
+    const long long p = b0 + 16LL * i;
+    uint32_t w[4];
+    if (vec && p + 16 <= L) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(src + p));
+      w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t x = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const long long pos = p + 4 * q + b;
+          x |= static_cast<uint32_t>(pos < L ? src[pos] : 4) << (8 * b);
+        }
+        w[q] = x;
+      }
+    }
+    uint32_t cw = 0, mw = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      cw |= pack4(w[q]) << (8 * q);
+      mw |= valid4(w[q]) << (4 * q);
+    }
+    code_slab[i] = cw;
+    mask16[i] = static_cast<uint16_t>(mw);
   }
   __syncthreads();
 
-  const int w = base + threadIdx.x;
-  if (w >= n) return;
-  const uint8_t* s = slab + threadIdx.x;
+  const long long n = static_cast<long long>(L) - k + 1;
+  const uint32_t live = run_mask(n - (b0 + kRun * tid));
+  if (live) {
+    uint32_t code[4];
+    run_codes(code_slab, tid, code);
+    uint64_t* out = out_hash + tid * (kRun + 1);
+    hash_run<NW>(code, k, [&](int j, uint64_t h) { out[j] = h; });
+  }
+  out_valid[tid] = window_valid(run_valid_bits(mask16, tid), k) & live;
+  __syncthreads();
 
-  // Forward k-mer packed most-significant base first; the reverse complement
-  // packed so that base j lands at bits 2j. k <= 32 keeps every shift < 64.
-  uint64_t fwd = 0, rc = 0;
-  bool ok = true;
-#pragma unroll
-  for (int j = 0; j < kMaxK; ++j) {
-    if (j < k) {
-      uint32_t c = s[j];
-      ok &= c < 4;
-      c &= 3u;
-      fwd = (fwd << 2) | c;
-      rc |= static_cast<uint64_t>(3u - c) << (2 * j);
+  const size_t base = static_cast<size_t>(row) * n;
+  for (int o = tid; o < kBlockWindows; o += kThreads) {
+    const long long w = b0 + o;
+    if (w < n) {
+      hash[base + w] = static_cast<int64_t>(out_hash[(o / kRun) * (kRun + 1) + o % kRun]);
+      valid[base + w] = (out_valid[o / kRun] >> (o % kRun)) & 1u;
     }
   }
-  const uint64_t canon = fwd <= rc ? fwd : rc;
-
-  // The k ASCII bytes of canon, little-endian into four 64-bit words
-  // (bytes past k stay zero, which is how Murmur reads its tail).
-  uint64_t word[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int j = 0; j < kMaxK; ++j) {
-    if (j < k) {
-      const uint32_t b = static_cast<uint32_t>(canon >> (2 * (k - 1 - j))) & 3u;
-      const uint64_t ch = b == 0 ? 65u : b == 1 ? 67u : b == 2 ? 71u : 84u;
-      word[j >> 3] |= ch << (8 * (j & 7));
-    }
-  }
-
-  uint64_t h1 = kSeed, h2 = kSeed;
-  const int nblocks = k >> 4;
-#pragma unroll
-  for (int b = 0; b < 2; ++b) {
-    if (b < nblocks) {
-      uint64_t k1 = word[2 * b], k2 = word[2 * b + 1];
-      k1 *= kC1;
-      k1 = rotl64(k1, 31);
-      k1 *= kC2;
-      h1 ^= k1;
-      h1 = rotl64(h1, 27);
-      h1 += h2;
-      h1 = h1 * 5 + 0x52DCE729;
-      k2 *= kC2;
-      k2 = rotl64(k2, 33);
-      k2 *= kC1;
-      h2 ^= k2;
-      h2 = rotl64(h2, 31);
-      h2 += h1;
-      h2 = h2 * 5 + 0x38495AB5;
-    }
-  }
-  const int tail = k & 15;
-  const uint64_t t1 = nblocks == 0 ? word[0] : word[2];
-  const uint64_t t2 = nblocks == 0 ? word[1] : word[3];
-  if (tail > 8) {
-    uint64_t k2 = t2 * kC2;
-    k2 = rotl64(k2, 33);
-    h2 ^= k2 * kC1;
-  }
-  if (tail > 0) {
-    uint64_t k1 = t1 * kC1;
-    k1 = rotl64(k1, 31);
-    h1 ^= k1 * kC2;
-  }
-  h1 ^= static_cast<uint64_t>(k);
-  h2 ^= static_cast<uint64_t>(k);
-  h1 += h2;
-  h2 += h1;
-  h1 = fmix64(h1) + fmix64(h2);
-
-  const size_t out = static_cast<size_t>(row) * n + w;
-  hash[out] = static_cast<int64_t>(h1);
-  valid[out] = ok;
 }
 
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
-// The caller checks 1 <= k <= 32, L >= k, 1 <= B <= 65535 and contiguity.
+// The caller checks 1 <= k <= 32, L >= k, 1 <= B <= 65535 and contiguity;
+// vec: rows may be read 16 bytes at a time (L % 16 == 0, aligned base).
 extern "C" int kmer_hash_launch(const uint8_t* codes, int64_t* hash, bool* valid,
-                                int B, int L, int k, void* stream) {
-  const int n = L - k + 1;
-  const dim3 grid((n + kThreads - 1) / kThreads, B);
-  kmer_hash_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      codes, hash, valid, L, k);
+                                int B, int L, int k, int vec, void* stream) {
+  const long long n = static_cast<long long>(L) - k + 1;
+  const dim3 grid(static_cast<unsigned>((n + kBlockWindows - 1) / kBlockWindows), B);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((k + 7) / 8) {
+    case 1: kmer_hash_kernel<1><<<grid, kThreads, 0, s>>>(codes, hash, valid, L, k, vec); break;
+    case 2: kmer_hash_kernel<2><<<grid, kThreads, 0, s>>>(codes, hash, valid, L, k, vec); break;
+    case 3: kmer_hash_kernel<3><<<grid, kThreads, 0, s>>>(codes, hash, valid, L, k, vec); break;
+    default: kmer_hash_kernel<4><<<grid, kThreads, 0, s>>>(codes, hash, valid, L, k, vec); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }

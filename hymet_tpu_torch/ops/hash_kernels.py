@@ -1,11 +1,18 @@
-"""Hand-written CUDA kernels of the screen, and their wrappers.
+"""Hand-written CUDA kernels of the screen, their wrappers and plain versions.
 
-Counterpart of ``hymet_tpu/ops/pallas_kernels.py``. The kernel
-(``csrc/kmer_hash.cu``) is compiled by ``nvcc`` at first use — never at
-import — into a shared library with a plain C interface, bound with
-``ctypes``. The build lands in ``build/hymet_tpu_torch/<sha1>/`` beside
-the package, keyed by the sources and flags, so an edited source builds
-anew.
+Counterpart of ``hymet_tpu/ops/pallas_kernels.py``:
+
+- :func:`screen_count` (``csrc/screen_count.cu``) — the screen's main
+  path: one staged batch, 2-bit packed, unpacked, hashed, filtered and
+  counted in one kernel;
+- :func:`kmer_hashes` (``csrc/kmer_hash.cu``) — the hash of every window
+  of a code batch, the direct counterpart of ``kmer_hashes_pallas``.
+
+Both build on ``csrc/kmer_core.cuh``. The ``.cu`` sources are compiled by
+one ``nvcc`` at first use — never at import — into one shared library with
+a plain C interface, bound with ``ctypes``. The build lands in
+``build/hymet_tpu_torch/<sha1>/`` beside the package, keyed by all sources
+(the header included) and flags, so an edited source builds anew.
 
 A wrapper takes its kernel's plain PyTorch version only for a tensor on
 the CPU; for a CUDA tensor it launches the kernel or raises.
@@ -24,15 +31,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from hymet_tpu_torch.ops.hashing import kmer_hashes_torch
+from hymet_tpu_torch.ops.hashing import SIGN, kmer_hashes_torch, unpack_code_batch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "kmer_hash.cu",)
+_CSRC = _PKG / "csrc"
+SOURCES = (_CSRC / "kmer_core.cuh", _CSRC / "kmer_hash.cu", _CSRC / "screen_count.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 NVCC_TIMEOUT_S = 180
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 class KernelLibrary:
@@ -44,12 +54,12 @@ class KernelLibrary:
         self.path = path
         self.build_s = build_s
         self.log = log
-        fn = lib.kmer_hash_launch
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+        for fn, argtypes in (
+            (lib.kmer_hash_launch, [_P, _P, _P, _I, _I, _I, _I, _P]),
+            (lib.screen_count_launch, [_P, _P, _I, _I, _I, _I, _I, _P, _I, _LL, _P, _P, _I, _P]),
+        ):
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
 
 
 _LIBRARY: Optional[KernelLibrary] = None
@@ -70,13 +80,14 @@ def _nvcc() -> str:
 def _build_dir() -> Path:
     digest = hashlib.sha1()
     for src in SOURCES:
+        digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return _PKG.parent / "build" / "hymet_tpu_torch" / digest.hexdigest()
 
 
 def load_library() -> KernelLibrary:
-    """Build (if this source's library is not there yet) and load the
+    """Build (if these sources' library is not there yet) and load the
     kernels. Raises with nvcc's output if the build fails."""
     global _LIBRARY
     if _LIBRARY is not None:
@@ -87,7 +98,8 @@ def load_library() -> KernelLibrary:
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"libhymet_kernels.so.tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+        cus = [str(src) for src in SOURCES if src.suffix == ".cu"]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
         t0 = time.perf_counter()
         proc = subprocess.run(
             cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S
@@ -103,16 +115,36 @@ def load_library() -> KernelLibrary:
     return _LIBRARY
 
 
+def _launch(name: str, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        fn = getattr(load_library().lib, f"{name}_launch")
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+
+
+def _vec(*tensors, width: int) -> int:
+    """1 if every row of `width` bytes may be read 16 bytes at a time."""
+    return int(width % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _check_device(name: str, *tensors) -> str:
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return "cpu"
+    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: unsupported devices {[str(t.device) for t in tensors]}")
+    return "cuda"
+
+
 def kmer_hashes(codes: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, L] uint8 codes -> (hash int64 [B, L-k+1], valid bool [B, L-k+1]).
 
     Same function as :func:`hymet_tpu_torch.ops.hashing.kmer_hashes_torch`.
     A CUDA tensor goes to the hand-written kernel (counted in
     ``kmer_hashes.launches``); a CPU tensor goes to the plain version."""
-    if codes.device.type == "cpu":
+    if _check_device("kmer_hashes", codes) == "cpu":
         return kmer_hashes_torch(codes, k)
-    if codes.device.type != "cuda":
-        raise ValueError(f"kmer_hashes: unsupported device {codes.device}")
     if codes.dtype != torch.uint8 or codes.dim() != 2:
         raise ValueError(
             f"kmer_hashes: need a [B, L] uint8 tensor, got {codes.dtype} "
@@ -127,19 +159,98 @@ def kmer_hashes(codes: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
         raise ValueError(f"sequence shorter than k: L={L}, k={k}")
     if not 1 <= B <= 65535:
         raise ValueError(f"kmer_hashes: B must be in 1..65535, got {B}")
+    if L >= 2**31:
+        raise ValueError(f"kmer_hashes: L must be below 2^31, got {L}")
     n = L - k + 1
     hash_ = torch.empty((B, n), dtype=torch.int64, device=codes.device)
     valid = torch.empty((B, n), dtype=torch.bool, device=codes.device)
-    lib = load_library().lib
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.kmer_hash_launch(
-            codes.data_ptr(), hash_.data_ptr(), valid.data_ptr(), B, L, k, stream
-        )
-    if rc != 0:
-        raise RuntimeError(f"kmer_hash_launch failed with CUDA error {rc}")
+    _launch("kmer_hash", codes.device, codes.data_ptr(), hash_.data_ptr(),
+            valid.data_ptr(), B, L, k, _vec(codes, width=L))
     kmer_hashes.launches += 1
     return hash_, valid
 
 
 kmer_hashes.launches = 0
+
+
+def screen_count_torch(
+    packed: torch.Tensor, mask: torch.Tensor, L: int, k: int,
+    flat: torch.Tensor, t: int, counts: torch.Tensor, total: torch.Tensor,
+) -> None:
+    """Plain version of :func:`screen_count`: unpack, hash every window,
+    keep the valid windows whose key ``q = hash ^ SIGN`` is <= `t`, look
+    them up in `flat` and add 1 to `counts` at each exact hit; add the
+    number of valid windows to `total`. Updates `counts` and `total` in
+    place, on whatever device they lie."""
+    h, valid = kmer_hashes_torch(unpack_code_batch(packed, mask, L), k)
+    count_hashes(h, valid, flat, t, counts, total)
+
+
+def count_hashes(
+    h: torch.Tensor, valid: torch.Tensor, flat: torch.Tensor, t: int,
+    counts: torch.Tensor, total: torch.Tensor,
+) -> None:
+    """The count step of :func:`screen_count_torch` on window hashes
+    already made: add the valid windows to `total`, and 1 to
+    ``counts[pos]`` for each valid key ``hash ^ SIGN <= t`` equal to
+    ``flat[pos]``."""
+    valid = valid.reshape(-1)
+    total += valid.sum()
+    q = h.reshape(-1) ^ SIGN
+    q = q[valid & (q <= t)]
+    pos = torch.searchsorted(flat, q).clamp_(max=flat.shape[0] - 1)
+    pos = pos[flat[pos] == q]
+    counts.index_add_(0, pos, torch.ones_like(pos, dtype=torch.int32))
+
+
+def screen_count(
+    packed: torch.Tensor, mask: torch.Tensor, L: int, k: int,
+    flat: torch.Tensor, t: int, counts: torch.Tensor, total: torch.Tensor,
+) -> None:
+    """Count one packed batch into the screen: for every window of the
+    [B, L] rows (packed [B, W] 2-bit codes, mask [B, M] validity bits, as
+    :func:`hymet_tpu_torch.io.fasta.pack_code_batch` makes them) whose k
+    bases are valid, add 1 to `total` (int64, one element); if its key
+    ``q = hash ^ SIGN`` is <= `t` and equals ``flat[pos]`` (sorted unique
+    int64 keys [F]), add 1 to ``counts[pos]`` (int32 [F]).
+
+    A CUDA batch goes to the hand-written kernel (counted in
+    ``screen_count.launches``); a CPU batch goes to
+    :func:`screen_count_torch`."""
+    args = (packed, mask, flat, counts, total)
+    if _check_device("screen_count", *args) == "cpu":
+        return screen_count_torch(packed, mask, L, k, flat, t, counts, total)
+    for name, x, dtype, dim in (
+        ("packed", packed, torch.uint8, 2), ("mask", mask, torch.uint8, 2),
+        ("flat", flat, torch.int64, 1), ("counts", counts, torch.int32, 1),
+        ("total", total, torch.int64, None),
+    ):
+        if x.dtype != dtype or (dim is not None and x.dim() != dim):
+            raise ValueError(f"screen_count: {name} must be {dtype} with {dim} dims, "
+                             f"got {x.dtype} {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"screen_count: {name} must be contiguous")
+    B, W = packed.shape
+    M = mask.shape[1]
+    if mask.shape[0] != B or W != 2 * M:
+        raise ValueError(f"screen_count: packed {tuple(packed.shape)} and mask "
+                         f"{tuple(mask.shape)} do not describe one batch")
+    if not 1 <= k <= 32:
+        raise ValueError(f"screen_count: k must be in 1..32, got {k}")
+    if not k <= L <= 8 * M:
+        raise ValueError(f"screen_count: need k <= L <= {8 * M}, got L={L}, k={k}")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"screen_count: B must be in 1..65535, got {B}")
+    F = flat.shape[0]
+    if not 1 <= F < 2**31 or counts.shape[0] != F or total.numel() != 1:
+        raise ValueError(f"screen_count: need 1 <= F < 2^31 keys, counts [F] and one "
+                         f"total, got {F}, {tuple(counts.shape)}, {tuple(total.shape)}")
+    if L >= 2**31:
+        raise ValueError(f"screen_count: L must be below 2^31, got {L}")
+    _launch("screen_count", packed.device, packed.data_ptr(), mask.data_ptr(), B, W, M,
+            L, k, flat.data_ptr(), F, int(t), counts.data_ptr(), total.data_ptr(),
+            _vec(packed, mask, width=M))
+    screen_count.launches += 1
+
+
+screen_count.launches = 0

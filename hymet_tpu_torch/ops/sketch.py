@@ -4,10 +4,12 @@ single-device path).
 1. Engine set-up: the union of all reference sketch hashes is
    de-duplicated and sorted into a flat array [F] on the device, with a
    per-reference index matrix [R, s] into it (:func:`flat_index_device`).
-2. Streaming: each batch of query codes is hashed (the hand-written
-   kernel on the card), hashes above the largest DB hash are dropped
-   (bottom-s sketches hold only small hashes), the survivors are looked
-   up in the flat array and each hit adds 1 to its count.
+2. Streaming: each 2-bit packed batch of query codes is counted in one
+   step (:func:`~hymet_tpu_torch.ops.hash_kernels.screen_count`, the
+   hand-written kernel on the card): every valid window is hashed, hashes
+   above the largest DB hash are dropped (bottom-s sketches hold only
+   small hashes), the survivors are looked up in the flat array and each
+   hit adds 1 to its count.
 3. Scores: per reference, shared = #sketch hashes with count > 0;
    identity = 1 + ln(2c/(1+c))/k with c = shared/n_hashes (Mash's
    containment estimate); median = upper median of the shared hashes'
@@ -21,18 +23,19 @@ sorted, searched or compared.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from hymet_tpu_torch.io.fasta import pack_code_batch
 from hymet_tpu_torch.io.sketchdb import SketchDB
-from hymet_tpu_torch.ops.hash_kernels import kmer_hashes
-from hymet_tpu_torch.ops.hashing import SIGN, unpack_code_batch
+from hymet_tpu_torch.ops.hash_kernels import screen_count
+from hymet_tpu_torch.ops.hashing import SIGN
 from hymet_tpu_torch.utils.device import resolve_device
 
-HashFn = Callable[[torch.Tensor, int], Tuple[torch.Tensor, torch.Tensor]]
+# (packed, mask, L, k, flat, t, counts, total) -> None, as screen_count
+CountFn = Callable[..., None]
 
 
 def flat_index_device(
@@ -153,22 +156,24 @@ class ScreenEngine:
     """Streaming mash-screen over one SketchDB on one device. Feed query
     code batches; :meth:`finalize` gives per-reference rows.
 
-    ``hash_fn`` is the k-mer hash, a test seam: callers leave the kernel
-    wrapper; a check passes the plain version to compare the two on the
-    card."""
+    ``count_fn`` counts one packed batch, a test seam: callers leave the
+    kernel wrapper; a check passes
+    :func:`~hymet_tpu_torch.ops.hash_kernels.screen_count_torch` to
+    compare the two on the card."""
 
-    def __init__(self, db: SketchDB, device="cuda", *, hash_fn: HashFn = kmer_hashes):
+    def __init__(self, db: SketchDB, device="cuda", *, count_fn: CountFn = screen_count):
         self.device = resolve_device(device)
         self.db = db
-        self.hash_fn = hash_fn
+        self.count_fn = count_fn
         self.flat, self.ref_idx = flat_index_device(db.hashes, self.device)
         self.counts = torch.zeros(self.flat.shape[0], dtype=torch.int32, device=self.device)
         self.n_hashes = torch.from_numpy(np.asarray(db.n_hashes, np.int32)).to(self.device)
-        # the largest DB hash: query hashes above it cannot match
-        self._t = self.flat[-1] if self.flat.numel() else None
+        # the largest DB key, read once: query keys above it cannot match
+        self._t = int(self.flat[-1]) if self.flat.numel() else None
         self.total_query_kmers = 0
-        # per-batch valid-window counts stay on the device until finalize()
-        self._kmer_parts: List[torch.Tensor] = []
+        # valid windows of the batches counted so far, on the device until
+        # finalize()
+        self._total = torch.zeros(1, dtype=torch.int64, device=self.device)
 
     def update_codes_packed(self, codes: np.ndarray) -> None:
         """Stream in a host [B, L] uint8 batch, shipped 2-bit packed with
@@ -188,15 +193,7 @@ class ScreenEngine:
         staging, pipeline/staged.py)."""
         if self._t is None:
             raise ValueError("staged screen updates need a non-empty DB")
-        codes = unpack_code_batch(packed, mask, L)
-        h, valid = self.hash_fn(codes, self.db.k)
-        valid = valid.reshape(-1)
-        self._kmer_parts.append(valid.sum())
-        q = h.reshape(-1) ^ SIGN
-        q = q[valid & (q <= self._t)]
-        pos = torch.searchsorted(self.flat, q).clamp_(max=self.flat.shape[0] - 1)
-        pos = pos[self.flat[pos] == q]
-        self.counts.index_add_(0, pos, torch.ones_like(pos, dtype=torch.int32))
+        self.count_fn(packed, mask, L, self.db.k, self.flat, self._t, self.counts, self._total)
 
     def _count_kmers_host(self, codes) -> None:
         """Exact valid-window count (empty-DB path only)."""
@@ -212,9 +209,8 @@ class ScreenEngine:
         identity, shared, median = screen_scores(
             self.counts, self.ref_idx, self.n_hashes, self.db.k
         )
-        if self._kmer_parts:
-            self.total_query_kmers += int(torch.stack(self._kmer_parts).sum())
-            self._kmer_parts = []
+        self.total_query_kmers += int(self._total)
+        self._total.zero_()
         return ScreenResult(
             db=self.db,
             identity=identity.cpu().numpy(),

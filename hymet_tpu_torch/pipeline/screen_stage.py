@@ -25,8 +25,7 @@ import numpy as np
 
 from hymet_tpu_torch.io.fasta import encode_seq, iter_fasta
 from hymet_tpu_torch.io.sketchdb import SketchDB
-from hymet_tpu_torch.ops.hash_kernels import kmer_hashes
-from hymet_tpu_torch.ops.sketch import HashFn, ScreenEngine, ScreenResult
+from hymet_tpu_torch.ops.sketch import ScreenEngine, ScreenResult
 
 DEFAULT_PVALUE_MAX = 0.9  # mash screen -v 0.9 (mash.sh:14)
 THRESHOLD_FLOOR = Decimal("0.70")
@@ -43,8 +42,6 @@ def stream_screen(
     chunk_bp: int = 1 << 20,
     staged=None,
     device="cuda",
-    *,
-    hash_fn: HashFn = kmer_hashes,
 ) -> ScreenResult:
     """Stream all sequences of all query files through the screen engine.
 
@@ -56,12 +53,8 @@ def stream_screen(
     consume the upload-once device-resident batches instead of re-reading
     the files; whole-contig rows carry the same k-mer multiset as the
     overlapped chunk rows, so the counts are identical.
-
-    ``hash_fn`` is a test seam, passed on to :class:`ScreenEngine`: a check
-    gives the plain hash to hold the kernel against it through the whole
-    stage. Callers leave the default.
     """
-    eng = ScreenEngine(db, device=device, hash_fn=hash_fn)
+    eng = ScreenEngine(db, device=device)
     if staged is not None:
         for packed, mask, _rows, L in staged.device:
             eng.update_staged(packed, mask, L)
@@ -167,23 +160,19 @@ def run_screen_stage(
     chunk_bp: int = 1 << 20,
     staged=None,
     device="cuda",
-    *,
-    hash_fn: HashFn = kmer_hashes,
 ) -> List[str]:
     """Full stage over several sketch DBs (the reference screens sketch1,
     sketch2, sketch3 and unions the selections, ``run_hymet_cami.sh:83-98``).
 
     Writes per-DB screen/sorted/top_hits/selected files plus the unioned,
     de-duplicated ``selected_genomes.txt``; returns the selected ids.
-    ``hash_fn`` is the test seam of :func:`stream_screen`.
     """
     os.makedirs(outdir, exist_ok=True)
     labels = list(db_labels) if db_labels else [f"db{i+1}" for i in range(len(dbs))]
 
     def screen(db):
         return stream_screen(
-            db, query_files, chunk_bp=chunk_bp, staged=staged, device=device,
-            hash_fn=hash_fn,
+            db, query_files, chunk_bp=chunk_bp, staged=staged, device=device
         )
 
     # single pass: DBs sharing k are merged and the queries stream once;

@@ -1,6 +1,6 @@
 """hymet_tpu_torch hashing vs the JAX package: the plain PyTorch k-mer hash
 against kmer_hashes_jax and the Pallas kernel (interpret mode), the
-scalar/numpy oracles, the 2-bit unpack, and the kernel wrapper's CPU
+scalar/numpy oracles, the 2-bit unpack, and the kernel wrappers' CPU
 dispatch. Integers must be identical."""
 
 import numpy as np
@@ -126,3 +126,40 @@ def test_wrapper_refuses_other_devices():
     """No silent fallback: a tensor on neither the CPU nor a CUDA card is refused."""
     with pytest.raises(ValueError):
         hash_kernels.kmer_hashes(torch.zeros((1, 40), dtype=torch.uint8, device="meta"), 21)
+
+
+def _count_inputs(seed: int, k: int = 21):
+    """A packed batch and flat keys holding some of its hashes."""
+    codes = _codes(seed, 3, 700)
+    packed, mask, L = tfasta.pack_code_batch(codes)
+    h, v = thash.kmer_hashes_torch(torch.from_numpy(codes), k)
+    keys = torch.unique(torch.cat([h[v][::7], torch.tensor([5, -9])]) ^ thash.SIGN)
+    return torch.from_numpy(packed), torch.from_numpy(mask), L, keys
+
+
+def test_screen_count_wrapper_takes_plain_path_on_cpu():
+    packed, mask, L, flat = _count_inputs(4)
+    before = hash_kernels.screen_count.launches
+    out = []
+    for fn in (hash_kernels.screen_count, hash_kernels.screen_count_torch):
+        counts = torch.zeros(flat.shape[0], dtype=torch.int32)
+        total = torch.zeros(1, dtype=torch.int64)
+        fn(packed, mask, L, 21, flat, int(flat[-1]), counts, total)
+        out.append((counts, total))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    assert int(out[0][0].sum()) > 0 and int(out[0][1]) > 0
+    assert hash_kernels.screen_count.launches == before  # no kernel launch
+
+
+@pytest.mark.parametrize("where", ["meta", "mixed"])
+def test_screen_count_wrapper_refuses_other_devices(where):
+    """A batch on neither the CPU nor a card, or split across devices, is refused."""
+    packed, mask, L, flat = _count_inputs(5)
+    counts = torch.zeros(flat.shape[0], dtype=torch.int32)
+    total = torch.zeros(1, dtype=torch.int64, device="meta" if where == "meta" else "cpu")
+    if where == "meta":
+        packed, mask, flat, counts = (x.to("meta") for x in (packed, mask, flat, counts))
+    else:
+        counts = counts.to("meta")
+    with pytest.raises(ValueError):
+        hash_kernels.screen_count(packed, mask, L, 21, flat, 0, counts, total)

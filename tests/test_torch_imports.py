@@ -105,19 +105,34 @@ def test_chip_smoke_fails_outside_the_repository(tmp_path):
 
 
 def test_chip_smoke_bound_counts():
-    """The kernel's bound in chip_smoke: ops per window as documented
-    (rolling packing, not a repack per window), and the chunk shape and
-    the staged screen's batches bound by bytes at the table's peaks."""
+    """The kernels' bounds in chip_smoke: 32-bit instructions per window as
+    documented, term by term, at the card's integer rates; kmer_hashes
+    counted on every window, screen_count only on valid windows (not on
+    padding), each bound by whichever of bytes and operations is slower."""
     import chip_smoke
 
-    assert chip_smoke.hash_ops_per_window(21) == 12 + 2 + 5 * 21 + 24 + 6 + 21
-    assert chip_smoke.hash_ops_per_window(32) == 12 + 2 + 5 * 32 + 48 + 21
-    assert chip_smoke.hash_ops_per_window(15) == 12 + 2 + 5 * 15 + 12 + 21
-    ms, by = chip_smoke.hash_bound_ms([(8, 1 << 20)], 21)
+    assert chip_smoke.window_ops(21, screen=True) == (1 + 10 + 20 + 2 + 16 + 4 + 20 + 3, 16 + 6 + 12)
+    assert chip_smoke.window_ops(21, screen=False) == (1 + 10 + 20 + 2 + 16 + 4 + 20 + 2, 16 + 6 + 12)
+    assert chip_smoke.window_ops(32, screen=False) == (1 + 10 + 26 + 2 + 32 + 20 + 2, 32 + 12)
+    assert chip_smoke.window_ops(15, screen=False) == (1 + 10 + 14 + 2 + 4 + 4 + 20 + 2, 6 + 6 + 12)
+    sms, clock = 132, 1.98e9
+    ms, by = chip_smoke.hash_bound_ms([(8, 1 << 20)], 21, sms, clock)
     n = 8 * ((1 << 20) - 20)
-    assert by == "bytes"
-    assert ms == pytest.approx((8 * (1 << 20) + 9 * n) / 3.35e12 * 1e3)
-    two, by2 = chip_smoke.hash_bound_ms([(8, 1 << 20), (8, 1 << 20)], 21)
-    assert by2 == "bytes" and two == pytest.approx(2 * ms)
+    assert by == "operations"
+    assert ms == pytest.approx(n * max(75 / 64, 34 / 64, 109 / 128) / sms / clock * 1e3)
+    assert ms > (8 * (1 << 20) + 9 * n) / 3.35e12 * 1e3
+    two, by2 = chip_smoke.hash_bound_ms([(8, 1 << 20), (8, 1 << 20)], 21, sms, clock)
+    assert by2 == "operations" and two == pytest.approx(2 * ms)
+    # screen_count: the same valid windows cost the same operations however
+    # much padding the batch carries; the bytes count every packed byte
+    dense = chip_smoke.screen_bound_ms([(4_000_000, 10_000_000, 2000, 10**8)], 21, sms, clock)
+    padded = chip_smoke.screen_bound_ms([(20_000_000, 10_000_000, 2000, 10**8)], 21, sms, clock)
+    alu = 10_000_000 * 76 + 2000 * 6 * 27
+    want = max(alu / 64, 10_000_000 * 34 / 64, (alu + 10_000_000 * 34) / 128) / sms / clock * 1e3
+    assert dense == padded == (pytest.approx(want), "operations")
+    assert chip_smoke.screen_bound_ms([(10**10, 10, 0, 1)], 21, sms, clock) == (
+        pytest.approx(10**10 / 3.35e12 * 1e3), "bytes")
     codes = chip_smoke.codes_with_n_runs(np.random.default_rng(0), 2, 1000)
     assert codes.shape == (2, 1000) and (codes == 4).any() and codes.max() <= 4
+    edge = chip_smoke.edge_codes(np.random.default_rng(0), 200)
+    assert (edge[2] == 4).all() and edge[1, chip_smoke.RUN - 1] == edge[1, 2 * chip_smoke.RUN] == 4

@@ -1,6 +1,7 @@
 """hymet_tpu_torch screen engine vs the JAX package's ScreenEngine on the
 CPU: flat index, counts, identity (float32 bit-identical), shared, median,
-query k-mer total and p-values."""
+query k-mer total and p-values; and the plain version of the screen_count
+kernel against the JAX engine's staged update, count for count."""
 
 import os
 
@@ -16,7 +17,8 @@ from hymet_tpu.ops import sketch as jsketch
 from hymet_tpu_torch.io.sketchdb import SketchDB as TDB
 from hymet_tpu_torch.io.sketchdb import load_sketch_db
 from hymet_tpu_torch.ops import sketch as tsketch
-from hymet_tpu_torch.ops.hashing import kmer_hashes_torch
+from hymet_tpu_torch.ops.hash_kernels import screen_count_torch
+from hymet_tpu_torch.ops.hashing import kmer_hashes_numpy
 
 torch.set_num_threads(1)
 
@@ -63,8 +65,8 @@ def _jax_engine(db, rows, staged):
     return eng.finalize()
 
 
-def _port_engine(db, rows, staged, hash_fn=None):
-    kw = {"hash_fn": hash_fn} if hash_fn else {}
+def _port_engine(db, rows, staged, count_fn=None):
+    kw = {"count_fn": count_fn} if count_fn else {}
     eng = tsketch.ScreenEngine(_as_port(db), device="cpu", **kw)
     if staged:
         from hymet_tpu_torch.io.fasta import pack_code_batch
@@ -97,15 +99,81 @@ def test_screen_engine_matches_jax(seed, staged):
 
 
 def test_screen_engine_hash_fn_is_used():
+    """The engine's test seam (``count_fn``, which took the place of the
+    hash seam ``hash_fn``) receives every batch, with the engine's flat
+    keys, threshold, counts and total."""
     db, rows = _world(2)
     calls = []
 
-    def counting(codes, k):
-        calls.append(tuple(codes.shape))
-        return kmer_hashes_torch(codes, k)
+    def counting(packed, mask, L, k, flat, t, counts, total):
+        calls.append((tuple(packed.shape), tuple(mask.shape), L, k, t == int(flat[-1])))
+        return screen_count_torch(packed, mask, L, k, flat, t, counts, total)
 
     _assert_same_result(_port_engine(db, rows, True, counting), _port_engine(db, rows, True))
-    assert calls == [rows.shape]
+    W = -(-rows.shape[1] // 8) * 2
+    assert calls == [((rows.shape[0], W), (rows.shape[0], W // 2), rows.shape[1], 21, True)]
+
+
+def _staged_batch(seed: int, k: int):
+    """Seeded code rows as a staged batch holds them: N runs (two of them
+    on a 32-window run boundary), a short contig in a padded row, an
+    all-padding row; L not a multiple of 8."""
+    rng = np.random.default_rng(seed)
+    L = 1003
+    rows = rng.integers(0, 4, size=(6, L), dtype=np.uint8)
+    rows[0, 31:33] = 4
+    rows[1, 64] = 4
+    rows[2, 500:520] = 4
+    rows[3, 300:] = 4  # a short contig, then padding
+    rows[4] = 4  # all padding
+    rows[5, rng.integers(0, L, 12)] = 4
+    return rows
+
+
+@pytest.mark.parametrize("k", [21, 32])
+@pytest.mark.parametrize("case", ["db", "all_survive", "none_survive"])
+def test_screen_count_plain_matches_jax_update_staged(case, k):
+    """screen_count_torch against the JAX engine's update_staged on one
+    packed batch: counts over the flat keys and the valid-window total,
+    equal element for element. "all_survive": the DB's largest hash is
+    2^64 - 2, the largest a DB can hold (2^64 - 1 pads), so every valid
+    window passes the threshold; "none_survive": the DB holds only hashes
+    below every query hash."""
+    from hymet_tpu.io.fasta import pack_code_batch
+
+    rows = _staged_batch(k, k)
+    rng = np.random.default_rng(k + 1)
+    if case == "none_survive":
+        hashes = np.arange(1, 9, dtype=np.uint64).reshape(2, 4)
+    else:
+        q = np.concatenate([kmer_hashes_numpy(r, k) for r in rows])
+        hashes = np.sort(
+            np.concatenate([rng.choice(q, 60, replace=False),
+                            rng.integers(0, 2**63, 4, dtype=np.uint64)])
+        ).reshape(4, 16)
+        if case == "all_survive":
+            hashes[-1, -1] = np.uint64(2**64 - 2)
+    db = JDB(k=k, sketch_size=hashes.shape[1], hashes=hashes,
+             n_hashes=np.full(hashes.shape[0], hashes.shape[1], np.int32),
+             names=[f"r{i}" for i in range(hashes.shape[0])],
+             lengths=np.zeros(hashes.shape[0], np.int64), comments=[""] * hashes.shape[0])
+    packed, mask, L = pack_code_batch(rows)
+    jeng = jsketch.ScreenEngine(db)
+    jeng.update_staged(jnp.asarray(packed), jnp.asarray(mask), L)
+    want_counts = np.asarray(jeng.counts)
+    want_total = jeng.finalize().total_query_kmers
+
+    flat, _ = tsketch.flat_index_device(db.hashes, torch.device("cpu"))
+    counts = torch.zeros(flat.shape[0], dtype=torch.int32)
+    total = torch.zeros(1, dtype=torch.int64)
+    screen_count_torch(torch.from_numpy(packed), torch.from_numpy(mask), L, k, flat,
+                       int(flat[-1]), counts, total)
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    assert int(total) == want_total > 0
+    if case == "none_survive":
+        assert not want_counts.any()
+    else:
+        assert want_counts.sum() >= 30  # the sampled query hashes are found
 
 
 def test_screen_engine_empty_db():

@@ -36,6 +36,28 @@ Phases, each printed as one JSON line with its seconds:
              runs, the kernel's share of it, peak device memory, and one
              profiled run (device busy time and idle share).
 
+6. align   — the align slice on the same staged gut batches: the screen
+             selects genomes, their FASTAs (validation/work_cami_suite/
+             genomes/, in selected_genomes.txt order) make the reference,
+             and ``run_align_stage`` builds its minimizer index on the card
+             and writes ``resultados.paf``; with every launch count set to 0
+             just before and read just after, each of ``minimizers``,
+             ``anchors`` and ``chains`` must have been launched. The same
+             stage with the plain versions (MinimizerAligner's ``ops``
+             default swapped) must write the same bytes, and the card's index
+             equal the numpy twin's on the first 5 Mbp or more of the
+             reference. Then the index build's seconds, ``map_batch``'s
+             (median of 3), the record count, peak device memory, the
+             overflow boosts and one profiled ``map_batch``.
+7. align kernels — ``minimizers``, ``anchors`` and ``chains`` against their
+             plain versions bit for bit, on the 16 staged gut batches (the
+             main path's shapes, with that index) and at the edge cases
+             (N runs, padded, short and all-padding rows, a row shorter than
+             k + w, k and w at their limits, repeats with equal hashes in a
+             window, a repetitive index and caps that overflow); each
+             kernel's time, its plain version's and its bound (see
+             :func:`minimizer_ops`), summed over one pass of the batches.
+
 Then the card's name and power limit as nvidia-smi prints them, one JSON
 line with the kernels' numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -46,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import filecmp
+import gzip
 import json
 import math
 import os
@@ -60,12 +83,16 @@ from unittest import mock
 import numpy as np
 import torch
 
-from hymet_tpu_torch.io.fasta import pack_code_batch, read_fasta
+from hymet_tpu_torch.io.fasta import encode_seq, iter_fasta, pack_code_batch, read_fasta
+from hymet_tpu_torch.io.minimizer_index import MinimizerIndex
 from hymet_tpu_torch.io.sketchdb import SketchDB, load_sketch_db
-from hymet_tpu_torch.ops import hash_kernels
+from hymet_tpu_torch.models.aligner import AlignerConfig, MinimizerAligner
+from hymet_tpu_torch.ops import align_kernels, hash_kernels
 from hymet_tpu_torch.ops.hash_kernels import count_hashes, screen_count_torch
 from hymet_tpu_torch.ops.hashing import SIGN, kmer_hashes_torch, unpack_code_batch
+from hymet_tpu_torch.ops.minimizer import extract_minimizers_torch
 from hymet_tpu_torch.ops.sketch import ScreenEngine, flat_index_device
+from hymet_tpu_torch.pipeline.align_stage import run_align_stage
 from hymet_tpu_torch.pipeline.candidates import limit_candidates_files
 from hymet_tpu_torch.pipeline.screen_stage import run_screen_stage
 from hymet_tpu_torch.pipeline.staged import StagedContigs
@@ -74,6 +101,7 @@ from hymet_tpu_torch.utils.config import RunConfig
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORLD = os.path.join(REPO, "validation", "work_cami_suite")
 CONTIGS = os.path.join(WORLD, "data", "camisyn_gut", "contigs.fna")
+GENOMES = os.path.join(WORLD, "genomes")
 DB_LABELS = ["sketch1", "sketch2", "sketch3"]
 
 # H100 SXM memory rate (NVIDIA data sheet) and 32-bit integer issue rates
@@ -536,6 +564,341 @@ def phase_scale(tmp: str, cfg: RunConfig, seed: int, small_ref: str, kernel_ms: 
          max_memory_allocated=peak, sorted_tab_identical_to_slice=True, screen_profile=prof)
 
 
+# ----------------------------------------------------------------------
+# the align slice
+
+
+def minimizer_ops(k: int) -> tuple:
+    """(ALU, multiply-add) 32-bit instructions the minimizer function needs
+    per window with a valid k-mer, counted from the function (64-bit
+    add, logic op or shift 2, compare or select 2, multiply by a constant
+    3 multiply-adds):
+
+    - the forward and reverse-complement 2k-bit words, rolled by one base:
+      shift, insert and mask each (6 and 5), the validity count of the
+      window (2), their compare (2), the canonical select (2) and the
+      strand bit (1): 18;
+    - hash64 (k <= 32 in one 64-bit word): ``~key + (key << 21)``,
+      ``key * 265``, ``key * 21`` and ``key + (key << 31)`` are multiplies
+      by constants (4 x 3 multiply-adds) each masked to 2k bits (4 x 2),
+      and three shift-XORs (3 x 4): ALU 20, multiply-add 12;
+    - the sentinel for an invalid k-mer (2);
+    - the sliding minimum, amortised: the new k-mer against the current
+      minimum (2), the select of its position (1), the test whether the
+      minimum left the window (1): 4;
+    - keep: a new position (1), not the sentinel (2), and (1): 4.
+    """
+    del k  # the same for every k <= 32: one 64-bit word
+    return 18 + 20 + 2 + 4 + 4, 12
+
+
+def minimizer_bound_ms(batches, k: int, sms: int, clock_hz: float) -> tuple:
+    """(least time in ms, what bounds it) for ``minimizers`` over batches
+    given as (input bytes, windows holding a valid k-mer, kept minimizers):
+    operations only for windows with a valid k-mer (a window of padding
+    needs none); packed and mask read once, each kept minimizer's (hash,
+    pos, strand, row) written once (8 + 4 + 1 + 4 bytes). The [cap] slots
+    past the last kept one are not counted: the JAX compaction leaves them
+    as they are and every consumer reads only the first n_kept."""
+    alu, mad = minimizer_ops(k)
+    nbytes = sum(b + 17 * kept for b, _, kept in batches)
+    n = sum(v for _, v, _ in batches)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops_ms(n * alu, n * mad, sms, clock_hz)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def search_steps(U: int) -> int:
+    """Dependent loads of a lower-bound search over U sorted keys."""
+    return max(1, math.ceil(math.log2(U + 1)))
+
+
+def search_entries(U: int, n: int) -> int:
+    """Table entries that n lower-bound searches over U sorted keys touch at
+    most: level l of the search holds at most 2^l distinct probes, and at
+    most one a query."""
+    return min(U, sum(min(1 << level, n) for level in range(search_steps(U))))
+
+
+def anchor_bound_ms(batches, U: int, sms: int, clock_hz: float) -> tuple:
+    """(least time in ms, what bounds it) for ``anchors`` over batches given
+    as (kept minimizers n, anchors a, acap), against U unique hashes:
+
+    - bytes: per kept minimizer its 17 bytes read and one 8-byte run-offset
+      row; each unique-hash table entry the searches touch read once a
+      launch (8 bytes, search_entries(U, n) of them); per anchor its
+      8-byte payload row read and its key, qpos and rpos (16 bytes)
+      written; past the last anchor the 8-byte sentinel key, which the
+      reference writes too (the sort after it orders all acap keys). A
+      search's repeated dependent loads of an entry are L2 hits, not
+      memory bytes: the whole table (8 U bytes, 33 MB at U = 4.17 M) fits
+      in the card's 50 MB L2;
+    - operations: search_steps(U) steps of 6 ALU instructions per kept
+      minimizer, about 12 per anchor for its keys."""
+    steps = search_steps(U)
+    nbytes = sum(n * (17 + 8) + 8 * search_entries(U, n) + 24 * a + 8 * max(acap - a, 0)
+                 for n, a, acap in batches)
+    n_alu = sum(n * 6 * steps + 12 * a for n, a, _ in batches)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops_ms(n_alu, 0, sms, clock_hz)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def chain_bound_ms(batches, sms: int, clock_hz: float) -> tuple:
+    """(least time in ms, what bounds it) for ``chains`` over batches given
+    as (anchors A, good chains C): each sorted anchor's key, qpos and rpos
+    (16 bytes) read once, and the C rows of 9 int32 written once; per anchor
+    about 13 ALU instructions (the break test on k1, rel and band 6, four
+    min/max 4, the score step 3). The [acap] slots past the last anchor and
+    the [ccap] rows past the last chain are not counted: the function
+    needs neither."""
+    nbytes = sum(16 * A + 36 * C for A, C in batches)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops_ms(13 * sum(A for A, _ in batches), 0, sms, clock_hz)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def zero_launches() -> None:
+    for fn in (hash_kernels.screen_count, hash_kernels.kmer_hashes, *align_kernels.KERNELS):
+        fn.launches = 0
+
+
+def align_launches() -> dict:
+    return {fn.__name__: fn.launches for fn in align_kernels.KERNELS}
+
+
+def write_combined(selected: str, out_path: str) -> int:
+    """The reference FASTA of the selected genomes, in selected_genomes.txt
+    order, as the reference build concatenates them (run.py's reference
+    stage): each listed file's lines, a newline added where one is missing.
+    Returns the number of genomes."""
+    with open(selected) as f:
+        names = [ln.strip() for ln in f if ln.strip()]
+    with open(out_path, "wb") as out:
+        for name in names:
+            acc = "_".join(name.split("_")[:2])
+            with gzip.open(os.path.join(GENOMES, acc, name), "rb") as g:
+                data = g.read()
+            out.write(data)
+            if data and not data.endswith(b"\n"):
+                out.write(b"\n")
+    return len(names)
+
+
+def same_index(a: MinimizerIndex, b: MinimizerIndex) -> bool:
+    return all(
+        getattr(a, f).dtype == getattr(b, f).dtype and np.array_equal(getattr(a, f), getattr(b, f))
+        for f in ("hashes", "seq_id", "pos", "strand", "lengths")
+    )
+
+
+def plain_ops():
+    """Context in which every MinimizerAligner built runs the plain versions:
+    the aligner's test seam, its default swapped."""
+    return mock.patch.dict(MinimizerAligner.__init__.__kwdefaults__, ops=align_kernels.PLAIN)
+
+
+def phase_align(tmp: str, cfg: RunConfig) -> tuple:
+    t0 = time.perf_counter()
+    names, seqs = read_fasta(CONTIGS)
+    staged = stage_contigs(cfg)
+    work = os.path.join(tmp, "align_kernel")
+    screen(work, cfg, load_world_dbs(), DB_LABELS, staged)
+    n_selected = limit_stage(work, cfg)
+    ref_dir = os.path.join(tmp, "reference")
+    os.makedirs(ref_dir)
+    combined = os.path.join(ref_dir, "combined_genomes.fasta")
+    n_genomes = write_combined(os.path.join(work, "selected_genomes.txt"), combined)
+    torch.cuda.synchronize()
+    # the main path: index build on the card, map, PAF
+    zero_launches()
+    t = time.perf_counter()
+    paf = run_align_stage(combined, names, seqs, work, cfg, staged=staged, device="cuda")
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t
+    launches = align_launches()
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"an align kernel was not launched on the main path: {launches}")
+    # the same stage with the plain versions, on the cached index
+    plain_work = os.path.join(tmp, "align_plain")
+    with plain_ops():
+        plain_paf = run_align_stage(combined, names, seqs, plain_work, cfg, staged=staged, device="cuda")
+    torch.cuda.synchronize()
+    if align_launches() != launches:
+        raise AssertionError("the plain align stage launched an align kernel")
+    if not filecmp.cmp(paf, plain_paf, shallow=False):
+        raise AssertionError("resultados.paf differs between the kernel path and the plain path")
+    with open(paf) as f:
+        n_records = sum(1 for _ in f)
+    if n_records == 0:
+        raise AssertionError("the align stage wrote no record")
+    # the index: its build on the card timed, and equal to the numpy twin's
+    # on the first >= 5 Mbp of the reference
+    t = time.perf_counter()
+    index = MinimizerIndex.build_from_fasta(combined, device="cuda")
+    index_s = time.perf_counter() - t
+    part, bp = [], 0
+    for name, seq in iter_fasta(combined):
+        part.append((name, seq))
+        bp += len(seq)
+        if bp >= 5_000_000:
+            break
+    t = time.perf_counter()
+    if not same_index(MinimizerIndex.build(part, device="cuda"), MinimizerIndex.build(part, device="cpu")):
+        raise AssertionError("the card's index differs from the numpy twin's")
+    check_s = time.perf_counter() - t
+    # map_batch: median of 3, peak memory, one profiled run
+    aligner = MinimizerAligner(index, AlignerConfig(batch_pad=cfg.align_batch_pad), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, lines = [], None
+    for _ in range(3):
+        t = time.perf_counter()
+        records = aligner.map_batch(names, seqs, staged=staged)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        got = [r.to_line() + "\n" for r in records]
+        if lines is not None and got != lines:
+            raise AssertionError("map_batch differs between runs")
+        lines = got
+    with open(paf) as f:
+        if f.readlines() != lines:
+            raise AssertionError("map_batch differs from resultados.paf")
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_run(lambda: aligner.map_batch(names, seqs, staged=staged))
+    emit("align", t0, selected_genomes=n_selected, reference_genomes=n_genomes,
+         reference_bp=int(index.lengths.sum()), reference_sequences=len(index.names),
+         index_minimizers=index.n_minimizers, index_build_s=index_s,
+         index_equal_to_numpy_bp=bp, index_check_s=check_s, stage_s=stage_s,
+         map_batch_s=times, map_batch_median_s=statistics.median(times), records=n_records,
+         paf_identical_to_plain=True, launches=launches, staged_batches=len(staged.device),
+         boosts={"cap": aligner._cap_boost, "acap": aligner._acap_boost, "ccap": aligner._ccap_boost},
+         max_memory_allocated=peak, map_batch_profile=prof)
+    return index, staged, launches
+
+
+def check_equal(name: str, got, want) -> float:
+    """Raise unless every output equals the plain version's bit for bit;
+    returns the largest absolute difference (0.0)."""
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{name}: output {i} differs from the plain version")
+    return max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+               for a, b in zip(got, want))
+
+
+def edge_world(rng: np.random.Generator):
+    """A repetitive index (one unit in 16 and in 17 copies, so that some
+    hashes occur max_occ times and some more, and a 40 kbp genome a contig
+    covers whole) and query rows for it."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    unit = acgt[rng.integers(0, 4, 3000)].tobytes()
+    other = acgt[rng.integers(0, 4, 3000)].tobytes()
+    long_g = acgt[rng.integers(0, 4, 40000)].tobytes()
+    genomes = [(f"u{i}", unit) for i in range(16)] + [(f"o{i}", other) for i in range(17)]
+    genomes.append(("long", long_g))
+    index = MinimizerIndex.build(genomes, device="cpu")
+    rows = [unit, other, long_g, unit[:500] + other[:500], unit[:30]]
+    return index, rows
+
+
+def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged, sms: int,
+                        clock_hz: float) -> dict:
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    kn = align_kernels
+    cases = {"minimizers": [], "anchors": [], "chains": []}
+    err = dict.fromkeys(cases, 0.0)
+    # minimizers at the edges: k and w at their limits, rows across tiles
+    for k, w in ((19, 19), (15, 5), (16, 1), (32, 7), (31, 19), (5, 64)):
+        for L in (k + w - 1, 2048 + k + w, 4099, 70_000):
+            codes = codes_with_n_runs(rng, 6, L)
+            codes[2] = 4  # all padding
+            codes[3, L // 2:] = 4  # a short row
+            codes[4, : min(L, k + w - 2)] = rng.integers(0, 4, min(L, k + w - 2))
+            codes[4, k + w - 2:] = 4  # a row shorter than k + w - 1
+            codes[5] = np.arange(L) % 2  # equal hashes in one window, cap overflow
+            packed, mask, _ = pack_code_batch(codes)
+            packed, mask = torch.from_numpy(packed).cuda(), torch.from_numpy(mask).cuda()
+            lens = torch.tensor([L, L - 1, 0, L // 2, k + w - 2, L], dtype=torch.int32).cuda()
+            for cap in (6 * L, max(1, L // 8)):
+                for row_len in (None, lens):
+                    got = kn.minimizers(packed, mask, L, k, w, cap, row_len)
+                    want = kn.minimizers_torch(packed, mask, L, k, w, cap, row_len)
+                    err["minimizers"] = max(err["minimizers"], check_equal(
+                        f"minimizers k={k} w={w} L={L} cap={cap}", got, want))
+                    cases["minimizers"].append([k, w, L, cap, row_len is not None, int(want[4])])
+    # anchors and chains at the edges: a repetitive index, caps that overflow
+    eidx, rows = edge_world(rng)
+    eal = MinimizerAligner(eidx, device="cuda")
+    L = 1 << 16
+    codes = np.full((len(rows), L), 4, np.uint8)
+    for r, q in enumerate(rows):
+        codes[r, : len(q)] = encode_seq(q)
+    packed, mask, _ = pack_code_batch(codes)
+    packed, mask = torch.from_numpy(packed).cuda(), torch.from_numpy(mask).cuda()
+    for cap in (8192, 1000):
+        mz = kn.minimizers_torch(packed, mask, L, 19, 19, cap)
+        for acap in (1 << 17, 3000):
+            got = kn.anchors(*mz, eal._uniq, eal._roff2, eal._ps, 16, 11, acap, len(rows), L)
+            want = kn.anchors_torch(*mz, eal._uniq, eal._roff2, eal._ps, 16, 11, acap, len(rows), L)
+            err["anchors"] = max(err["anchors"], check_equal(f"anchors cap={cap} acap={acap}", got, want))
+            cases["anchors"].append([cap, acap, int(mz[4]), int(want[3])])
+            sorted_ = kn.sort_anchors(*want[:3])
+            for ccap in (1024, 7):
+                got = kn.chains(*sorted_, 19, 3, 40, ccap)
+                want_c = kn.chains_torch(*sorted_, 19, 3, 40, ccap)
+                err["chains"] = max(err["chains"], check_equal(
+                    f"chains cap={cap} acap={acap} ccap={ccap}", got, want_c))
+                cases["chains"].append([cap, acap, ccap, int(want_c[1]), int(want_c[0][:, 3].max())])
+    # the main path's shapes: the 16 staged gut batches against the gut index
+    aln = MinimizerAligner(index, AlignerConfig(batch_pad=cfg.align_batch_pad), device="cuda")
+    k, w = index.k, index.w
+    stats = {name: {"ms": 0.0, "plain_ms": 0.0} for name in cases}
+    shapes, mb, ab, cb = [], [], [], []
+    for packed, mask, B, L in staged.device:
+        NW, cap = aln._minimizer_cap(B, L)
+        acap, ccap = aln._device_caps(B, NW, cap)
+        mz = kn.minimizers(packed, mask, L, k, w, cap)
+        err["minimizers"] = max(err["minimizers"], check_equal(
+            "minimizers, staged batch", mz, kn.minimizers_torch(packed, mask, L, k, w, cap)))
+        args = (*mz, aln._uniq, aln._roff2, aln._ps, aln.cfg.max_occ, aln.cfg.band_bits, acap, B, L)
+        an = kn.anchors(*args)
+        err["anchors"] = max(err["anchors"], check_equal("anchors, staged batch", an, kn.anchors_torch(*args)))
+        sorted_ = kn.sort_anchors(*an[:3])
+        cargs = (*sorted_, k, aln.cfg.min_cnt, aln.cfg.min_mlen, ccap)
+        ch = kn.chains(*cargs)
+        err["chains"] = max(err["chains"], check_equal("chains, staged batch", ch, kn.chains_torch(*cargs)))
+        n_kept, n_anchors, n_chains = int(mz[4]), int(an[3]), int(ch[1])
+        if n_kept > cap or n_anchors > acap or n_chains > ccap:
+            raise AssertionError(f"a staged batch overflowed: {n_kept, cap, n_anchors, acap, n_chains, ccap}")
+        hi, lo = extract_minimizers_torch(unpack_code_batch(packed, mask, L), k, w)[:2]
+        live = int(((hi != 0xFFFFFFFF) | (lo != 0xFFFFFFFF)).sum())
+        mb.append((packed.numel() + mask.numel(), live, n_kept))
+        ab.append((n_kept, n_anchors, acap))
+        cb.append((n_anchors, n_chains))
+        shapes.append([B, L, live, cap, n_kept, acap, n_anchors, ccap, n_chains])
+        stats["minimizers"]["ms"] += cuda_ms(lambda: kn.minimizers(packed, mask, L, k, w, cap))
+        stats["minimizers"]["plain_ms"] += cuda_ms(
+            lambda: kn.minimizers_torch(packed, mask, L, k, w, cap), iters=3, warmup=1)
+        stats["anchors"]["ms"] += cuda_ms(lambda: kn.anchors(*args))
+        stats["anchors"]["plain_ms"] += cuda_ms(lambda: kn.anchors_torch(*args), iters=3, warmup=1)
+        stats["chains"]["ms"] += cuda_ms(lambda: kn.chains(*cargs))
+        stats["chains"]["plain_ms"] += cuda_ms(lambda: kn.chains_torch(*cargs), iters=3, warmup=1)
+    U = int(aln._uniq.numel())
+    for name, (bound, by) in (("minimizers", minimizer_bound_ms(mb, k, sms, clock_hz)),
+                              ("anchors", anchor_bound_ms(ab, U, sms, clock_hz)),
+                              ("chains", chain_bound_ms(cb, sms, clock_hz))):
+        stats[name].update(bound_ms=bound, bound_by=by, max_abs_err=err[name])
+    emit("align_kernels", t0, cases=cases, identical=True, unique_hashes=U,
+         search_steps=search_steps(U),
+         search_entries=[search_entries(U, n) for n, _, _ in ab], minimizer_ops=minimizer_ops(k), per_pass=stats,
+         batches=[["rows", "L", "windows_with_valid_kmer", "cap", "kept", "acap", "anchors",
+                   "ccap", "chains"], *shapes])
+    return stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -562,6 +925,8 @@ def main() -> int:
     try:
         small_ref, launches = phase_slice(tmp, cfg)
         phase_scale(tmp, cfg, args.seed, small_ref, kernels["screen_count"]["ms"])
+        index, staged, align_launched = phase_align(tmp, cfg)
+        align_stats = phase_align_kernels(args.seed, cfg, index, staged, sms, clock_mhz * 1e6)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -576,6 +941,13 @@ def main() -> int:
          "replaces": "hymet_tpu/ops/pallas_kernels.py:35",
          "launches": launches["screen_count"], "main_path": True,
          **kernels["screen_count"], "library_ms": None},
+        *({"name": name, "route": "cuda", "source": f"hymet_tpu_torch/csrc/{name}.cu",
+           "replaces": replaces, "launches": align_launched[name], "main_path": True,
+           **align_stats[name], "library_ms": None}
+          for name, replaces in (
+              ("minimizers", "hymet_tpu/ops/minimizer.py:241"),
+              ("anchors", "hymet_tpu/models/aligner.py:509"),
+              ("chains", "hymet_tpu/models/aligner.py:709"))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -8,9 +8,13 @@ Counterpart of ``hymet_tpu/ops/pallas_kernels.py``:
 - :func:`kmer_hashes` (``csrc/kmer_hash.cu``) — the hash of every window
   of a code batch, the direct counterpart of ``kmer_hashes_pallas``.
 
-Both build on ``csrc/kmer_core.cuh``. The ``.cu`` sources are compiled by
-one ``nvcc`` at first use — never at import — into one shared library with
-a plain C interface, bound with ``ctypes``. The build lands in
+Both build on ``csrc/kmer_core.cuh``. The align stage's kernels
+(:mod:`hymet_tpu_torch.ops.align_kernels`) live in the same library. The
+``.cu`` sources are compiled at first use — never at import — one nvcc a
+source, all started together (the build runs inside chip_smoke.py's time
+limit, and side by side it takes about the time of the slowest source),
+and linked into one shared library with a plain C interface, bound with
+``ctypes``. The build lands in
 ``build/hymet_tpu_torch/<sha1>/`` beside the package, keyed by all sources
 (the header included) and flags, so an edited source builds anew.
 
@@ -25,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Optional, Tuple
@@ -35,11 +40,12 @@ from hymet_tpu_torch.ops.hashing import SIGN, kmer_hashes_torch, unpack_code_bat
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-SOURCES = (_CSRC / "kmer_core.cuh", _CSRC / "kmer_hash.cu", _CSRC / "screen_count.cu")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+SOURCES = (
+    _CSRC / "kmer_core.cuh", _CSRC / "scan.cuh", _CSRC / "kmer_hash.cu", _CSRC / "screen_count.cu",
+    _CSRC / "minimizers.cu", _CSRC / "anchors.cu", _CSRC / "chains.cu",
 )
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 180
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -57,6 +63,12 @@ class KernelLibrary:
         for fn, argtypes in (
             (lib.kmer_hash_launch, [_P, _P, _P, _I, _I, _I, _I, _P]),
             (lib.screen_count_launch, [_P, _P, _I, _I, _I, _I, _I, _P, _I, _LL, _P, _P, _I, _P]),
+            (lib.minimizers_launch,
+             [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _LL, _P, _P, _P, _P, _P]),
+            (lib.anchors_launch,
+             [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _P,
+              _P, _P]),
+            (lib.chains_launch, [_P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _P]),
         ):
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -86,6 +98,45 @@ def _build_dir() -> Path:
     return _PKG.parent / "build" / "hymet_tpu_torch" / digest.hexdigest()
 
 
+def _run_all(cmds, deadline: float) -> str:
+    """Run the commands side by side; their joined output. Raises with a
+    failing command's output, or when `deadline` (time.monotonic()) passes;
+    leaves no command running."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    try:
+        outs = [p.communicate(timeout=max(0.0, deadline - time.monotonic()))[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
+def _build(out_dir: Path, so: Path) -> str:
+    """One nvcc a source, all started together, then one link into `so`,
+    all within NVCC_TIMEOUT_S; returns nvcc's output. The objects live in a
+    directory of their own, removed whether the build succeeds or not."""
+    deadline = time.monotonic() + NVCC_TIMEOUT_S
+    work = Path(tempfile.mkdtemp(prefix="build", dir=out_dir))
+    try:
+        cus = [src for src in SOURCES if src.suffix == ".cu"]
+        objs = [work / f"{src.stem}.o" for src in cus]
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                        for src, o in zip(cus, objs)], deadline)
+        tmp = work / so.name
+        log += _run_all([[_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]],
+                        deadline)
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return log
+
+
 def load_library() -> KernelLibrary:
     """Build (if these sources' library is not there yet) and load the
     kernels. Raises with nvcc's output if the build fails."""
@@ -97,20 +148,9 @@ def load_library() -> KernelLibrary:
     build_s, log = 0.0, ""
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libhymet_kernels.so.tmp{os.getpid()}"
-        cus = [str(src) for src in SOURCES if src.suffix == ".cu"]
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S
-        )
+        log = _build(out_dir, so)
         build_s = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
-            )
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     _LIBRARY = KernelLibrary(ctypes.CDLL(str(so)), so, build_s, log)
     return _LIBRARY
 

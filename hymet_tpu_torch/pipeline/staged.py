@@ -2,8 +2,8 @@
 
 The contigs are packed ONCE, in the aligner's (<= 64-row, geometric pad
 bucket) layout (:func:`hymet_tpu_torch.models.aligner.plan_query_groups`),
-and uploaded to the device, where the screen (and, once ported, the
-aligner) consume the resident buffers. The whole-contig rows carry the
+and uploaded to the device, where the screen and the aligner consume the
+resident buffers. The whole-contig rows carry the
 same k-mer multiset as the screen's chunked layout, so screen results
 are identical either way.
 
@@ -155,3 +155,12 @@ class StagedContigs:
             W, M,
         )
         return (packed, mask, rows, Lpad), TP + TM
+
+    def matches(self, n_seqs: int, batch_pad: int, min_len: int) -> bool:
+        """Whether these batches are the plan of `n_seqs` queries at
+        `batch_pad` and `min_len` (the aligner uses them only then)."""
+        return (
+            n_seqs == self.n_seqs
+            and batch_pad == self.batch_pad
+            and min_len == self.min_len
+        )

@@ -1,5 +1,6 @@
 """Run configuration: the fields of hymet_tpu's ``RunConfig`` that the
-screen slice reads, with the same names and defaults."""
+ported stages (screen, candidate limit, align) read, with the same names
+and defaults."""
 
 from __future__ import annotations
 
@@ -17,3 +18,4 @@ class RunConfig:
     cand_max: int = 5000
     species_dedup: bool = False
     assembly_summary_dir: Optional[str] = None
+    force_download: bool = False  # rebuild cached references and indexes

@@ -123,3 +123,150 @@ def test_screen_slice_kernel_matches_plain_on_card(tmp_path):
     assert names == sorted(os.listdir(outs["plain"])) and len(names) == 4 * len(LABELS) + 1
     for name in names:
         assert filecmp.cmp(os.path.join(outs["kernel"], name), os.path.join(outs["plain"], name), shallow=False)
+
+
+# ----------------------------------------------------------------------
+# the align slice's kernels: minimizers, anchors, chains
+
+ALIGN_KW = [(19, 19), (15, 5), (16, 1), (32, 7), (31, 19), (5, 64)]
+ALIGN_L = ["k+w-1", "tile+k+w", 4099, 70_000]
+_ACGT = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _align_codes(k: int, w: int, L: int) -> np.ndarray:
+    """[6, L] codes: N runs, an all-padding row, a half-padded row, a row
+    shorter than k + w - 1, a period-2 repeat (equal hashes in a window)."""
+    rng = np.random.default_rng(L * 64 + k + w)
+    codes = rng.integers(0, 4, size=(6, L), dtype=np.uint8)
+    codes[0, L // 3 : L // 3 + 40] = 4
+    codes[0, RUN - 1 :: 3 * RUN] = 4
+    codes[2] = 4
+    codes[3, L // 2 :] = 4
+    codes[4, k + w - 2 :] = 4
+    codes[5] = np.arange(L) % 2
+    return codes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,w", ALIGN_KW)
+@pytest.mark.parametrize("L", ALIGN_L)
+def test_minimizers_kernel_matches_plain(L, k, w):
+    """Every output bit for bit, with and without row lengths, with a cap
+    that holds every kept window and one that overflows."""
+    _need_card()
+    from hymet_tpu_torch.ops import align_kernels as ak
+
+    L = {"k+w-1": k + w - 1, "tile+k+w": 2048 + k + w}.get(L, L)
+    packed, mask, _ = pack_code_batch(_align_codes(k, w, L))
+    packed, mask = torch.from_numpy(packed).cuda(), torch.from_numpy(mask).cuda()
+    lens = torch.tensor([L, L - 1, 0, L // 2, k + w - 2, L], dtype=torch.int32).cuda()
+    for cap in (6 * L, max(1, L // 8)):
+        for row_len in (None, lens):
+            before = ak.minimizers.launches
+            got = ak.minimizers(packed, mask, L, k, w, cap, row_len)
+            want = ak.minimizers_torch(packed, mask, L, k, w, cap, row_len)
+            torch.cuda.synchronize()
+            assert ak.minimizers.launches == before + 1
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def repeat_world():
+    """A repetitive index (a unit in 16 copies, another in 17: hashes at
+    max_occ and above it; a 40 kbp genome) and a batch of query rows."""
+    from hymet_tpu_torch.io.minimizer_index import MinimizerIndex
+
+    rng = np.random.default_rng(11)
+    unit, other, long_g = (_ACGT[rng.integers(0, 4, n)].tobytes() for n in (3000, 3000, 40000))
+    genomes = [(f"u{i}", unit) for i in range(16)] + [(f"o{i}", other) for i in range(17)]
+    index = MinimizerIndex.build(genomes + [("long", long_g)], device="cpu")
+    rows = [unit, other, long_g, unit[:500] + other[:500], unit[:30]]
+    codes = np.full((len(rows), 1 << 16), 4, np.uint8)
+    for r, q in enumerate(rows):
+        codes[r, : len(q)] = _ACGT.searchsorted(np.frombuffer(q, np.uint8))
+    packed, mask, L = pack_code_batch(codes)
+    return index, torch.from_numpy(packed), torch.from_numpy(mask), L
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [8192, 1000])
+@pytest.mark.parametrize("acap", [1 << 17, 3000])
+@pytest.mark.parametrize("ccap", [1024, 7])
+def test_anchor_and_chain_kernels_match_plain(repeat_world, cap, acap, ccap):
+    """Anchors (occurrences up to max_occ and above, a cap that cuts the
+    minimizers, an acap that cuts the anchors) and chains (one of about
+    4000 anchors, a ccap that cuts them) bit for bit."""
+    _need_card()
+    from hymet_tpu_torch.models.aligner import MinimizerAligner
+    from hymet_tpu_torch.ops import align_kernels as ak
+
+    index, packed, mask, L = repeat_world
+    aln = MinimizerAligner(index, device="cuda")
+    mz = ak.minimizers_torch(packed.cuda(), mask.cuda(), L, 19, 19, cap)
+    tables = (aln._uniq, aln._roff2, aln._ps)
+    got = ak.anchors(*mz, *tables, 16, 11, acap, packed.shape[0], L)
+    want = ak.anchors_torch(*mz, *tables, 16, 11, acap, packed.shape[0], L)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    sorted_ = ak.sort_anchors(*want[:3])
+    got = ak.chains(*sorted_, 19, 3, 40, ccap)
+    want = ak.chains_torch(*sorted_, 19, 3, 40, ccap)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(want[1]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, L", [(65, 1 << 16), (5, (1 << 25) + 1)])
+def test_anchors_kernel_refuses_batches_past_the_key_layout(repeat_world, B, L):
+    """On the card too, a batch whose packed keys would wrap raises before
+    any launch."""
+    _need_card()
+    from hymet_tpu_torch.models.aligner import MinimizerAligner
+    from hymet_tpu_torch.ops import align_kernels as ak
+
+    index, packed, mask, L0 = repeat_world
+    aln = MinimizerAligner(index, device="cuda")
+    mz = ak.minimizers_torch(packed.cuda(), mask.cuda(), L0, 19, 19, 8192)
+    before = ak.anchors.launches
+    with pytest.raises(ValueError, match="packed key layout"):
+        ak.anchors(*mz, aln._uniq, aln._roff2, aln._ps, 16, 11, 1 << 17, B, L)
+    assert ak.anchors.launches == before
+
+
+@pytest.mark.gpu
+def test_align_slice_kernel_matches_plain_on_card(tmp_path):
+    """run_align_stage on the card: the index built by the kernel equals the
+    numpy twin's, the three kernels are launched, and resultados.paf is the
+    same bytes as with the plain versions."""
+    _need_card()
+    from hymet_tpu_torch.io.minimizer_index import MinimizerIndex
+    from hymet_tpu_torch.models.aligner import MinimizerAligner
+    from hymet_tpu_torch.ops import align_kernels as ak
+    from hymet_tpu_torch.pipeline.align_stage import run_align_stage
+
+    rng = np.random.default_rng(5)
+    genomes = [(f"g{i}", _ACGT[rng.integers(0, 4, n)].tobytes()) for i, n in enumerate((90000, 60000, 300))]
+    seqs = [genomes[0][1][5000:25000], genomes[1][1][:8000] + genomes[0][1][50000:58000],
+            _ACGT[rng.integers(0, 4, 6000)].tobytes(), genomes[1][1][100:130]]
+    names = [f"c{i}" for i in range(len(seqs))]
+    fasta = tmp_path / "combined_genomes.fasta"
+    fasta.write_text("".join(f">{n}\n{s.decode()}\n" for n, s in genomes))
+    card = MinimizerIndex.build(genomes, device="cuda")
+    host = MinimizerIndex.build(genomes, device="cpu")
+    for f in ("hashes", "seq_id", "pos", "strand", "lengths"):
+        assert getattr(card, f).dtype == getattr(host, f).dtype
+        np.testing.assert_array_equal(getattr(card, f), getattr(host, f))
+    for fn in ak.KERNELS:
+        fn.launches = 0
+    staged = StagedContigs(names, seqs, 1 << 16, 38, device="cuda")
+    paf = run_align_stage(str(fasta), names, seqs, str(tmp_path / "kernel"), staged=staged, device="cuda")
+    assert all(fn.launches > 0 for fn in ak.KERNELS)
+    launched = [fn.launches for fn in ak.KERNELS]
+    with mock.patch.dict(MinimizerAligner.__init__.__kwdefaults__, ops=ak.PLAIN):
+        plain = run_align_stage(str(fasta), names, seqs, str(tmp_path / "plain"), staged=staged, device="cuda")
+    assert [fn.launches for fn in ak.KERNELS] == launched
+    assert os.path.getsize(paf) > 0 and filecmp.cmp(paf, plain, shallow=False)

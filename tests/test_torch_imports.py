@@ -53,6 +53,30 @@ def test_port_imports_without_jax_or_reference_package():
     assert int(out.stdout.strip().splitlines()[-1]) >= 12  # every module was walked
 
 
+ALIGN_MODULES = [
+    "hymet_tpu_torch.ops.minimizer", "hymet_tpu_torch.ops.compaction",
+    "hymet_tpu_torch.ops.align_kernels", "hymet_tpu_torch.io.minimizer_index",
+    "hymet_tpu_torch.io.paf", "hymet_tpu_torch.models.aligner",
+    "hymet_tpu_torch.pipeline.align_stage",
+]
+
+
+@pytest.mark.parametrize("module", ALIGN_MODULES)
+def test_align_module_imports_without_jax_or_reference_package(module):
+    """Each module of the align slice, imported alone in a fresh process
+    with jax and hymet_tpu blocked, pulls in neither."""
+    code = _BLOCKED_IMPORTS.split("import hymet_tpu_torch")[0] + f"""
+import {module}
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hymet_tpu")]
+assert not bad, bad
+"""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible: the default device is usable here")
@@ -80,6 +104,28 @@ def test_entry_points_default_to_the_card(tmp_path):
         ScreenEngine(db)
     with pytest.raises(RuntimeError, match="CUDA"):
         StagedContigs(["a"], [b"ACGT" * 50], 4096, 38)
+
+
+def test_align_entry_points_default_to_the_card(tmp_path):
+    """The align slice's entry points, called without device=, ask for
+    CUDA and raise here, where there is no card."""
+    _no_card()
+    from hymet_tpu_torch.io.minimizer_index import MinimizerIndex
+    from hymet_tpu_torch.models.aligner import MinimizerAligner
+    from hymet_tpu_torch.pipeline.align_stage import run_align_stage
+
+    seq = b"ACGTTGCAAGGCTTAC" * 40
+    fasta = tmp_path / "ref.fna"
+    fasta.write_text(">r\n" + seq.decode() + "\n")
+    index = MinimizerIndex.build([("r", seq)], device="cpu")
+    for call in (
+        lambda: MinimizerIndex.build([("r", seq)]),
+        lambda: MinimizerIndex.build_from_fasta(str(fasta)),
+        lambda: MinimizerAligner(index),
+        lambda: run_align_stage(str(fasta), ["q"], [seq], str(tmp_path / "out")),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_chip_smoke_refuses_to_run_without_card():
@@ -136,3 +182,41 @@ def test_chip_smoke_bound_counts():
     assert codes.shape == (2, 1000) and (codes == 4).any() and codes.max() <= 4
     edge = chip_smoke.edge_codes(np.random.default_rng(0), 200)
     assert (edge[2] == 4).all() and edge[1, chip_smoke.RUN - 1] == edge[1, 2 * chip_smoke.RUN] == 4
+
+
+def test_chip_smoke_align_bounds(tmp_path, monkeypatch):
+    """The align kernels' bounds in chip_smoke count only what the function
+    needs: minimizers its operations on windows with a valid k-mer (48 ALU
+    and 12 multiply-add instructions a window) and its bytes for the kept
+    minimizers, not the [cap] slots; anchors the search table's touched
+    entries once, the anchors and the sentinel keys; chains the anchors
+    and the good chains' rows, not the padding; and the reference FASTA
+    written in selected_genomes.txt order."""
+    import gzip
+
+    import chip_smoke
+
+    sms, clock = 132, 1.98e9
+    assert chip_smoke.minimizer_ops(19) == (48, 12)
+    dense = chip_smoke.minimizer_bound_ms([(1_000_000, 10_000_000, 1000)], 19, sms, clock)
+    assert dense == (pytest.approx(10_000_000 * 0.75 / sms / clock * 1e3), "operations")
+    assert chip_smoke.minimizer_bound_ms([(10**10, 10, 5)], 19, sms, clock) == (
+        pytest.approx((10**10 + 17 * 5) / 3.35e12 * 1e3), "bytes")
+    assert [chip_smoke.search_steps(u) for u in (1, 2, 3, 8_000_000)] == [1, 2, 2, 23]
+    assert chip_smoke.search_entries(8_000_000, 1) == 23
+    assert chip_smoke.search_entries(1000, 4) == 1 + 2 + 4 * 8
+    assert chip_smoke.search_entries(7, 1000) == 7
+    ms, by = chip_smoke.anchor_bound_ms([(500, 800, 1024)], 7, sms, clock)
+    nbytes = 500 * (17 + 8) + 8 * 7 + 800 * 24 + 8 * 224
+    assert (ms, by) == (pytest.approx(nbytes / 3.35e12 * 1e3), "bytes")
+    ms, by = chip_smoke.chain_bound_ms([(4096, 10), (4096, 10)], sms, clock)
+    assert (ms, by) == (pytest.approx(2 * (16 * 4096 + 36 * 10) / 3.35e12 * 1e3), "bytes")
+    for acc, body in (("A_1.1", b">a1\nACGT\nAC"), ("B_2.1", b">b2\nGGGG\n")):
+        (tmp_path / acc).mkdir()
+        with gzip.open(tmp_path / acc / f"{acc}_genomic.fna.gz", "wb") as f:
+            f.write(body)
+    (tmp_path / "selected.txt").write_text("B_2.1_genomic.fna.gz\nA_1.1_genomic.fna.gz\n")
+    monkeypatch.setattr(chip_smoke, "GENOMES", str(tmp_path))
+    out = tmp_path / "combined.fasta"
+    assert chip_smoke.write_combined(str(tmp_path / "selected.txt"), str(out)) == 2
+    assert out.read_bytes() == b">b2\nGGGG\n>a1\nACGT\nAC\n"

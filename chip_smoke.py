@@ -54,9 +54,11 @@ Phases, each printed as one JSON line with its seconds:
              main path's shapes, with that index) and at the edge cases
              (N runs, padded, short and all-padding rows, a row shorter than
              k + w, k and w at their limits, repeats with equal hashes in a
-             window, a repetitive index and caps that overflow); each
-             kernel's time, its plain version's and its bound (see
-             :func:`minimizer_ops`), summed over one pass of the batches.
+             window, a repetitive index and caps that overflow), and
+             ``chains`` on the synthetic sets at its tile edges
+             (:func:`chain_edge_sets`); each kernel's time, its plain
+             version's and its bound (see :func:`minimizer_ops`), summed
+             over one pass of the batches, and each batch's longest chain.
 
 Then the card's name and power limit as nvidia-smi prints them, one JSON
 line with the kernels' numbers, and as the last line
@@ -201,14 +203,18 @@ def screen_bound_ms(batches, k: int, sms: int, clock_hz: float) -> tuple:
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() over `iters` back-to-back calls (CUDA
-    events). The card first sleeps about 50 us per call, so that the host
-    has enqueued the calls before they run: a kernel shorter than its
-    wrapper's host time is timed, not the host."""
+    events). The card first sleeps, per call, twice the host's time to
+    enqueue one (the fastest warm-up call; at least 50 us, at most 2 ms at
+    2 GHz), so that the host has enqueued the calls before they run: a
+    kernel shorter than its wrapper's host time is timed, not the host."""
+    host_s = math.inf
     for _ in range(warmup):
+        t = time.perf_counter()
         fn()
+        host_s = min(host_s, time.perf_counter() - t)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(100_000 * iters)
+    torch.cuda._sleep(int(min(max(100_000, 2 * host_s * 2e9), 4_000_000)) * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -803,6 +809,156 @@ def edge_world(rng: np.random.Generator):
     return index, rows
 
 
+CHAIN_TILE = 2048  # anchors a block of csrc/chains.cu owns
+CHAIN_ARGS = (19, 3, 40)  # k, min_cnt, min_mlen: AlignerConfig's defaults at k = 19
+CHAIN_CCAP = 4096
+CHAIN_A = 6 * CHAIN_TILE + 5
+
+
+class _AnchorSet:
+    """Sorted anchors built chain by chain as (k1, k2, qpos, rpos), in the
+    sort order of csrc/anchors.cu's keys: each chain breaks from the one
+    before it by a new k1 (qid << 26 | seq), a new rel, or a band jump of at
+    least 2; within a chain the band steps by 0 or 1."""
+
+    def __init__(self, rng: np.random.Generator):
+        self.rng = rng
+        self.k1, self.k2, self.p, self.r = [], [], [], []
+        self.group, self.rel, self.band = -1, 0, 0
+
+    def __len__(self) -> int:
+        return len(self.k1)
+
+    def chain(self, n: int, brk: str = "group", band_steps=None, q_steps=None,
+              qpos=None) -> None:
+        """Appends a chain of n anchors, broken from the last by `brk`."""
+        rng, k = self.rng, CHAIN_ARGS[0]
+        if brk == "group" or self.group < 0 or (brk == "rel" and self.rel == 1):
+            self.group, self.rel, self.band = self.group + 1, 0, int(rng.integers(0, 100))
+        elif brk == "rel":
+            self.rel = 1
+        else:  # a band jump
+            self.band += 2 + int(rng.integers(0, 3))
+        if band_steps is None:
+            band_steps = rng.integers(0, 2, n - 1)
+        bands = self.band + np.concatenate([[0], np.cumsum(band_steps)]).astype(np.int64)
+        self.band = int(bands[-1])
+        if qpos is None:
+            if q_steps is None:
+                q_steps = rng.choice([-50, -1, 0, 1, 2, k - 1, k, k + 1, 3 * k], n - 1,
+                                     p=[.02, .02, .04, .2, .2, .1, .2, .12, .1])
+            qpos = 1_000_000 + np.concatenate([[0], np.cumsum(q_steps)])
+        g = self.group
+        self.k1 += [(g >> 10) << 26 | (g & 1023)] * n
+        self.k2 += list((self.rel << 24) | bands)
+        self.p += list(np.asarray(qpos, np.int64))
+        self.r += list(rng.integers(0, 1 << 30, n))
+
+    def fill_to(self, end: int, longest: int = 40) -> None:
+        """Random chains (by a random break) up to anchor `end`, exclusive."""
+        while len(self) < end:
+            n = min(int(self.rng.integers(1, longest + 1)), end - len(self))
+            self.chain(n, brk=str(self.rng.choice(["group", "rel", "band"])))
+
+    def arrays(self, A: int) -> tuple:
+        """(key int64, qpos int32, rpos int32), each [A]: the anchors, then
+        padding (key 2^63 - 1, zeros) up to A."""
+        n = len(self)
+        raw = (np.array(self.k1, np.uint64) << np.uint64(32)) | np.array(self.k2, np.uint64)
+        key = np.full(A, (1 << 63) - 1, np.int64)
+        key[:n] = (raw ^ np.uint64(1 << 63)).view(np.int64)
+        p, r = np.zeros(A, np.int32), np.zeros(A, np.int32)
+        p[:n], r[:n] = self.p, self.r
+        return key, p, r
+
+
+def chain_edge_sets(seed: int = 0, longest: bool = False) -> list:
+    """Sorted synthetic anchor sets for ``chains`` at csrc/chains.cu's tile
+    edges, as (name, key, qpos, rpos, (k, min_cnt, min_mlen, ccap)). Anchor
+    counts 1, T - 1, T, T + 1, 3T + 5 and 6T + 5 (T = 2048 anchors a tile);
+    a chain over 5+ tiles; chains that start at tile starts and end at tile
+    ends, and a tile that is one whole chain; band steps of 0, 1 and 2, a
+    new rel and a new k1 across tile boundaries; qpos stepping backwards and
+    by more than k; cnt = min_cnt - 1 and min_cnt, mlen = min_mlen - 1 and
+    min_mlen, across boundaries and within a tile; padding from mid-tile
+    (also 3 anchors of it at the end with min_mlen <= k, where only its key
+    keeps the padding chain out), from a tile start, none and only padding;
+    a ccap that cuts the rows. With `longest`, also a chain over 260 tiles
+    (more than one round of the kernel's look-back, 256 tiles a round)."""
+    rng = np.random.default_rng(seed)
+    T, (k, min_cnt, min_mlen) = CHAIN_TILE, CHAIN_ARGS
+    sets = []
+
+    def add(name, s, A=CHAIN_A, ccap=CHAIN_CCAP, mlen=min_mlen):
+        sets.append((name, *s.arrays(A), (k, min_cnt, mlen, ccap)))
+
+    for A in (1, T - 1, T, T + 1, 3 * T + 5):
+        s = _AnchorSet(rng)
+        s.fill_to(A)
+        add(f"A={A}", s, A)
+    s = _AnchorSet(rng)
+    s.fill_to(1000)
+    s.chain(5 * T + 700)  # tiles 0 .. 5
+    s.fill_to(CHAIN_A)
+    add("chain_over_5_tiles", s)
+    s = _AnchorSet(rng)
+    s.fill_to(T - 1)
+    s.chain(1)  # one anchor at a tile end
+    s.chain(T)  # a tile that is one whole chain
+    s.chain(1)  # one anchor at a tile start
+    s.chain(T - 1)  # ends at a tile end
+    s.chain(3 * T // 2, brk="band")  # starts at a tile start, over a boundary
+    s.fill_to(5 * T)
+    s.chain(T + 1, brk="rel")
+    s.fill_to(CHAIN_A)
+    add("tile_starts_and_ends", s)
+    s = _AnchorSet(rng)
+    for b, step in enumerate((0, 1, 2, "rel", "group"), start=1):
+        s.fill_to(b * T - 7)
+        if isinstance(step, int):  # the band steps by `step` from the tile's last anchor
+            s.chain(14, band_steps=[step * (j == 6) for j in range(13)])
+        else:
+            s.chain(7)
+            s.chain(7, brk=step)
+    s.fill_to(CHAIN_A)
+    add("band_steps_at_boundaries", s)
+    s = _AnchorSet(rng)
+    for b in range(1, 6):
+        s.fill_to(b * T - 3)
+        s.chain(6, q_steps=[-40, k + 7, -1, 3 * k, 0])
+    s.fill_to(CHAIN_A)
+    add("qpos_back_and_past_k", s)
+    s = _AnchorSet(rng)
+    q0 = 1_000_000
+    span_bad, span_good = min_mlen - 1 - k, min_mlen - k  # mlen = span + k
+    for b, (n, qpos) in enumerate((
+            (min_cnt - 1, None), (min_cnt, None),
+            (6, q0 + np.array([0, 3, span_bad, 7, 1, 2])),
+            (6, q0 + np.array([0, 3, span_good, 7, 1, 2])))):
+        for at in (b * T + 500, (b + 1) * T - n // 2):  # within a tile, then over a boundary
+            s.fill_to(at)
+            s.chain(n, q_steps=[3 * k] * (n - 1) if qpos is None else None, qpos=qpos)
+    s.fill_to(CHAIN_A)
+    add("cnt_and_mlen_thresholds", s)
+    for name, valid, mlen in (("padding_from_mid_tile", 2 * T + 904, min_mlen),
+                              ("padding_ends_in_last_tile_min_mlen_below_k", CHAIN_A - 3, k // 2),
+                              ("padding_from_tile_start", 2 * T, min_mlen),
+                              ("only_padding", 0, k // 2)):
+        s = _AnchorSet(rng)
+        s.fill_to(valid)
+        add(name, s, mlen=mlen)
+    s = _AnchorSet(rng)
+    s.fill_to(CHAIN_A, longest=8)
+    add("ccap_cuts_rows", s, ccap=5)
+    if longest:
+        s = _AnchorSet(rng)
+        s.fill_to(T + 100)
+        s.chain(260 * T)
+        s.fill_to(262 * T + 5)
+        add("chain_over_260_tiles", s, A=263 * T)
+    return sets
+
+
 def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged, sms: int,
                         clock_hz: float) -> dict:
     t0 = time.perf_counter()
@@ -852,6 +1008,12 @@ def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged
                 err["chains"] = max(err["chains"], check_equal(
                     f"chains cap={cap} acap={acap} ccap={ccap}", got, want_c))
                 cases["chains"].append([cap, acap, ccap, int(want_c[1]), int(want_c[0][:, 3].max())])
+    # chains at its tile edges
+    for name, key, qpos, rpos, cargs in chain_edge_sets(seed, longest=True):
+        cin = tuple(torch.from_numpy(x).cuda() for x in (key, qpos, rpos))
+        want_c = kn.chains_torch(*cin, *cargs)
+        err["chains"] = max(err["chains"], check_equal(f"chains, set {name}", kn.chains(*cin, *cargs), want_c))
+        cases["chains"].append([name, len(key), cargs[3], int(want_c[1]), int(want_c[0][:, 3].max())])
     # the main path's shapes: the 16 staged gut batches against the gut index
     aln = MinimizerAligner(index, AlignerConfig(batch_pad=cfg.align_batch_pad), device="cuda")
     k, w = index.k, index.w
@@ -878,7 +1040,9 @@ def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged
         mb.append((packed.numel() + mask.numel(), live, n_kept))
         ab.append((n_kept, n_anchors, acap))
         cb.append((n_anchors, n_chains))
-        shapes.append([B, L, live, cap, n_kept, acap, n_anchors, ccap, n_chains])
+        # the longest chain of valid anchors: every chain passes min_cnt 1, min_mlen 0
+        longest = int(kn.chains_torch(*sorted_, k, 1, 0, acap)[0][:, 3].max())
+        shapes.append([B, L, live, cap, n_kept, acap, n_anchors, ccap, n_chains, longest])
         stats["minimizers"]["ms"] += cuda_ms(lambda: kn.minimizers(packed, mask, L, k, w, cap))
         stats["minimizers"]["plain_ms"] += cuda_ms(
             lambda: kn.minimizers_torch(packed, mask, L, k, w, cap), iters=3, warmup=1)
@@ -895,7 +1059,7 @@ def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged
          search_steps=search_steps(U),
          search_entries=[search_entries(U, n) for n, _, _ in ab], minimizer_ops=minimizer_ops(k), per_pass=stats,
          batches=[["rows", "L", "windows_with_valid_kmer", "cap", "kept", "acap", "anchors",
-                   "ccap", "chains"], *shapes])
+                   "ccap", "chains", "longest_chain"], *shapes])
     return stats
 
 

@@ -41,10 +41,10 @@ KEY_PAD = (1 << 63) - 1  # the sort key of a padding anchor (k1 = k2 = 0xFFFFFFF
 KEY_BIG = 0xFFFFFFFF
 
 # mirrors of the kernels' block shapes (csrc/minimizers.cu kMinTile,
-# anchors.cu kAncThreads, chains.cu kChainThreads)
+# anchors.cu kAncThreads, chains.cu kTile)
 _MIN_TILE = 2048
 _ANC_THREADS = 256
-_CHAIN_THREADS = 256
+_CHAIN_TILE = 2048
 _MAX_W = 256
 
 
@@ -343,16 +343,16 @@ def chains(
         raise ValueError(f"chains: need equal lengths and 1 <= A, ccap < 2^31, got "
                          f"{A}, {s_p.shape[0]}, {s_r.shape[0]}, {ccap}")
     dev = skey.device
-    nb = _ceil(A, _CHAIN_THREADS)
-    flags = torch.empty(A, dtype=torch.int32, device=dev)
-    stats = torch.empty((A, 6), dtype=torch.int32, device=dev)
+    nb = _ceil(A, _CHAIN_TILE)
+    agg = torch.empty((nb, 8), dtype=torch.int32, device=dev)
     block_sums = torch.empty(nb, dtype=torch.int32, device=dev)
     offsets = torch.empty(nb, dtype=torch.int64, device=dev)
     n_chains = torch.empty(1, dtype=torch.int64, device=dev)
+    rows = torch.empty((A, 8), dtype=torch.int32, device=dev)
     out = torch.empty((ccap, 9), dtype=torch.int32, device=dev)
     _launch("chains", dev, skey.data_ptr(), s_p.data_ptr(), s_r.data_ptr(), A, k, min_cnt,
-            min_mlen, nb, flags.data_ptr(), stats.data_ptr(), block_sums.data_ptr(),
-            offsets.data_ptr(), n_chains.data_ptr(), ccap, out.data_ptr())
+            min_mlen, nb, agg.data_ptr(), block_sums.data_ptr(), offsets.data_ptr(),
+            n_chains.data_ptr(), rows.data_ptr(), ccap, out.data_ptr())
     chains.launches += 1
     return out, n_chains
 

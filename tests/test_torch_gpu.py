@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from hymet_tpu_torch.io.fasta import pack_code_batch, read_fasta
 from hymet_tpu_torch.io.sketchdb import load_sketch_db
 from hymet_tpu_torch.ops import hash_kernels
@@ -217,6 +218,35 @@ def test_anchor_and_chain_kernels_match_plain(repeat_world, cap, acap, ccap):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert int(want[1]) > 0
+
+
+CHAIN_SETS = {name: rest for name, *rest in chip_smoke.chain_edge_sets(longest=True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CHAIN_SETS))
+def test_chains_kernel_matches_plain_at_tile_edges(name):
+    """The chain kernel's rows and n_chains bit for bit, one launch a call,
+    on the sets at its tile edges (chip_smoke.chain_edge_sets: sizes around
+    a tile, chains over 5 and 260 tiles, starts and ends at tile edges,
+    thresholds, padding from mid-tile and from a tile start, none and only
+    padding, a ccap that cuts the rows), with the allocator's free blocks
+    dirtied first so that a row left unwritten shows."""
+    _need_card()
+    from hymet_tpu_torch.ops import align_kernels as ak
+
+    key, p, r, cargs = CHAIN_SETS[name]
+    args = tuple(torch.from_numpy(x).cuda() for x in (key, p, r))
+    dirty = [torch.full((n,), -1, dtype=torch.int32, device="cuda")
+             for n in (9 * cargs[3], 8 * len(key), 8 * len(key) // 2048 + 8)]
+    del dirty
+    before = ak.chains.launches
+    got = ak.chains(*args, *cargs)
+    want = ak.chains_torch(*args, *cargs)
+    torch.cuda.synchronize()
+    assert ak.chains.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -48,7 +48,10 @@ Phases, each printed as one JSON line with its seconds:
              equal the numpy twin's on the first 5 Mbp or more of the
              reference. Then the index build's seconds, ``map_batch``'s
              (median of 3), the record count, peak device memory, the
-             overflow boosts and one profiled ``map_batch``.
+             overflow boosts and one profiled ``map_batch``; its
+             ``minimizers`` kernels, and the device activities of one
+             ``minimizers`` call (at most 3: the tile kernel, the tail
+             fill and the memset of the status words).
 7. align kernels — ``minimizers``, ``anchors`` and ``chains`` against their
              plain versions bit for bit, on the 16 staged gut batches (the
              main path's shapes, with that index) and at the edge cases
@@ -56,9 +59,14 @@ Phases, each printed as one JSON line with its seconds:
              k + w, k and w at their limits, repeats with equal hashes in a
              window, a repetitive index and caps that overflow), and
              ``chains`` on the synthetic sets at its tile edges
-             (:func:`chain_edge_sets`); each kernel's time, its plain
-             version's and its bound (see :func:`minimizer_ops`), summed
-             over one pass of the batches, and each batch's longest chain.
+             (:func:`chain_edge_sets`), ``minimizers`` on the code batches
+             at its tile edges (:func:`minimizer_edge_sets`, with and
+             without row lengths, 20 calls of one giving one answer);
+             each kernel's time, its plain version's and its bound (see
+             :func:`minimizer_ops`), summed over one pass of the batches,
+             and each batch's longest chain; and ``minimizers`` on the
+             index build's batches with their row lengths (the
+             ``index_pass``: held bit for bit, timed, bounded).
 
 Then the card's name and power limit as nvidia-smi prints them, one JSON
 line with the kernels' numbers, and as the last line
@@ -86,13 +94,13 @@ import numpy as np
 import torch
 
 from hymet_tpu_torch.io.fasta import encode_seq, iter_fasta, pack_code_batch, read_fasta
-from hymet_tpu_torch.io.minimizer_index import MinimizerIndex
+from hymet_tpu_torch.io.minimizer_index import MinimizerIndex, _row_batches
 from hymet_tpu_torch.io.sketchdb import SketchDB, load_sketch_db
 from hymet_tpu_torch.models.aligner import AlignerConfig, MinimizerAligner
 from hymet_tpu_torch.ops import align_kernels, hash_kernels
 from hymet_tpu_torch.ops.hash_kernels import count_hashes, screen_count_torch
 from hymet_tpu_torch.ops.hashing import SIGN, kmer_hashes_torch, unpack_code_batch
-from hymet_tpu_torch.ops.minimizer import extract_minimizers_torch
+from hymet_tpu_torch.ops.minimizer import extract_minimizers_numpy, extract_minimizers_torch
 from hymet_tpu_torch.ops.sketch import ScreenEngine, flat_index_device
 from hymet_tpu_torch.pipeline.align_stage import run_align_stage
 from hymet_tpu_torch.pipeline.candidates import limit_candidates_files
@@ -772,6 +780,7 @@ def phase_align(tmp: str, cfg: RunConfig) -> tuple:
             raise AssertionError("map_batch differs from resultados.paf")
     peak = torch.cuda.max_memory_allocated()
     prof = profile_run(lambda: aligner.map_batch(names, seqs, staged=staged))
+    minimizer_split = minimizer_activities(prof, aligner, index, staged)
     emit("align", t0, selected_genomes=n_selected, reference_genomes=n_genomes,
          reference_bp=int(index.lengths.sum()), reference_sequences=len(index.names),
          index_minimizers=index.n_minimizers, index_build_s=index_s,
@@ -779,8 +788,39 @@ def phase_align(tmp: str, cfg: RunConfig) -> tuple:
          map_batch_s=times, map_batch_median_s=statistics.median(times), records=n_records,
          paf_identical_to_plain=True, launches=launches, staged_batches=len(staged.device),
          boosts={"cap": aligner._cap_boost, "acap": aligner._acap_boost, "ccap": aligner._ccap_boost},
-         max_memory_allocated=peak, map_batch_profile=prof)
-    return index, staged, launches
+         max_memory_allocated=peak, map_batch_profile=prof, minimizers_device=minimizer_split)
+    return index, staged, launches, combined
+
+
+# device activities a minimizers call may make: its two kernels and the
+# memset of its status words
+MINIMIZER_ACTIVITIES = 3
+PROFILED_CALLS = 8
+
+
+def minimizer_activities(prof: dict, aligner: MinimizerAligner, index: MinimizerIndex,
+                         staged) -> dict:
+    """The minimizers kernels in a profiled map_batch (name, ms, count), and
+    the device activities (kernels and memsets) of PROFILED_CALLS calls
+    alone on the first staged batch, per call (the profiler may drop a
+    window's first activity, so each kind's count is rounded per call).
+    Raises unless the tile kernel shows and a call makes at most
+    MINIMIZER_ACTIVITIES, or if map_batch ran more than two minimizers
+    kernels a batch."""
+    kernels = [row for row in prof["device_ms"] if "minimizer" in row[0]]
+    packed, mask, B, L = staged.device[0]
+    cap = aligner._minimizer_cap(B, L)[1]
+    calls = profile_run(lambda: [align_kernels.minimizers(packed, mask, L, index.k, index.w, cap)
+                                 for _ in range(PROFILED_CALLS)])
+    per_call = {name: round(count / PROFILED_CALLS) for name, _ms, count in calls["device_ms"]}
+    activities = sum(per_call.values())
+    tile = sum(n for name, n in per_call.items() if "minimizer_tile_kernel" in name)
+    if tile != 1 or activities > MINIMIZER_ACTIVITIES or \
+            sum(c for _n, _ms, c in kernels) > 2 * len(staged.device):
+        raise AssertionError(f"minimizers made {activities} device activities a call "
+                             f"({calls['device_ms']}) and {kernels} in map_batch")
+    return {"map_batch_kernels": kernels, "calls": calls["device_ms"],
+            "activities_per_call": per_call}
 
 
 def check_equal(name: str, got, want) -> float:
@@ -959,8 +999,123 @@ def chain_edge_sets(seed: int = 0, longest: bool = False) -> list:
     return sets
 
 
-def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged, sms: int,
-                        clock_hz: float) -> dict:
+MIN_TILE = 2048  # windows a block of csrc/minimizers.cu owns
+MIN_ROWS, MIN_L = 4, 7 * MIN_TILE  # the CPU-sized edge sets: 7 tiles a row at k + w <= 38
+
+
+def lowest_kmer(rng: np.random.Generator, k: int, n: int = 200_000) -> np.ndarray:
+    """The codes of the k-mer with the least hash64 among the k-mers of n
+    random bases: placed anywhere, it is the one minimum of every window
+    that holds it (another k-mer's hash falls below it with odds of about
+    w / n)."""
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    h, p, _ = extract_minimizers_numpy(codes, k, 1)
+    i = int(p[np.argmin(h)])
+    return codes[i : i + k].copy()
+
+
+def minimizer_edge_sets(seed: int = 0, big: bool = False) -> list:
+    """Code batches for ``minimizers`` at csrc/minimizers.cu's tile edges, as
+    (name, codes [B, L] uint8, row_len [B] int32, k, w); T = 2048 windows a
+    tile. ``kept_at_tile_edges`` (k = w = 19): the lowest k-mer (an
+    unbeatable minimum) at k-mer T + w - 2 of row 0, so that window T - 1,
+    a tile's last slot, is kept with its minimum in the tile's right halo;
+    at k-mer 2T + w - 1, so that window 2T, a tile's first slot, is kept;
+    at k-mer 3T - 1, a minimum in tile 3's left halo (window 3T - 1); row 1's
+    valid bases end inside tile 0's right halo; row 2 holds tiles 2-4 of N
+    between valid tiles; row 3's row_len ends mid-tile (tiles 3-6 past it).
+    ``every_window_kept``: an AT repeat (odd k: both k-mers of the period
+    share one canonical hash, so every window's leftmost minimum is new),
+    the same with row_len mid-tile, a poly-A row and a random row.
+    ``wide_window`` (k = 15, w = 256: 145 runs of 16 k-mers a tile): the
+    lowest k-mer at the farthest halo k-mer of tile 0, T + w - 2. With
+    `big`, also ``more_tiles_than_resident`` (64 rows of 70 tiles, 4480
+    tiles, most of them working: more than one look-back step of 32 tiles
+    and more tiles than the card holds at once). Every set's row_len is
+    given; a caller runs each with and without it."""
+    rng = np.random.default_rng(seed)
+    T, sets = MIN_TILE, []
+    for name, k, w in (("kept_at_tile_edges", 19, 19), ("every_window_kept", 19, 19),
+                       ("wide_window", 15, 256)):
+        low = lowest_kmer(rng, k)
+        codes = rng.integers(0, 4, (MIN_ROWS, MIN_L)).astype(np.uint8)
+        row_len = np.full(MIN_ROWS, MIN_L, np.int32)
+        if name == "kept_at_tile_edges":
+            for at in (T + w - 2, 2 * T + w - 1, 3 * T - 1):
+                codes[0, at : at + k] = low
+            codes[1, T + 5 + k :] = 4  # the last valid k-mer is T + 5, in tile 0's halo
+            codes[2, 2 * T - 96 : 5 * T + 160] = 4  # tiles 2-4 hold no valid base
+            row_len[2] = MIN_L - 5
+            row_len[3] = 2 * T + 700
+        elif name == "every_window_kept":
+            codes[0] = codes[1] = np.arange(MIN_L) % 2 * 3  # ATAT...
+            row_len[1] = T + 300
+            codes[2] = 0  # AAAA...
+        else:
+            codes[0, T + w - 2 : T + w - 2 + k] = low
+            codes[1, 3 * T :] = 4
+            row_len[2] = 2 * T + w
+        sets.append((name, codes, row_len, k, w))
+    if big:
+        k = w = 19
+        L = 70 * T + k + w - 2
+        codes = codes_with_n_runs(rng, 64, L)
+        codes[5] = 4  # a row of padding
+        codes[9, L // 3 :] = 4
+        row_len = np.full(64, L, np.int32)
+        row_len[7] = 33 * T + 1000
+        sets.append(("more_tiles_than_resident", codes, row_len, k, w))
+    return sets
+
+
+def index_batches(combined: str, k: int, w: int):
+    """The index build's minimizers calls on the card (io/minimizer_index.py
+    ``_build_device``): the reference's sequences grouped by padded length,
+    as (packed, mask, row_len, L, cap) on the card, cap by the build's rule."""
+    seqs = read_fasta(combined)[1]
+    for ids, L in _row_batches([len(s) for s in seqs], k + w - 1):
+        codes = np.full((len(ids), L), 4, dtype=np.uint8)
+        for row, i in enumerate(ids):
+            c = encode_seq(seqs[i])
+            codes[row, : c.shape[0]] = c
+        packed, mask, _ = pack_code_batch(codes)
+        row_len = torch.tensor([len(seqs[i]) for i in ids], dtype=torch.int32, device="cuda")
+        cap = max(4096, int(len(ids) * (L - k - w + 2) * 2.0 / (w + 1) * 1.35))
+        yield torch.from_numpy(packed).cuda(), torch.from_numpy(mask).cuda(), row_len, L, cap
+
+
+def minimizer_index_pass(combined: str, k: int, w: int, sms: int, clock_hz: float) -> dict:
+    """``minimizers`` on the index build's batches with their row lengths:
+    bit for bit against the plain version, the kernel's and the plain
+    version's time and the bound, summed over the build's calls."""
+    out = {"calls": 0, "ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "batches": []}
+    mb = []
+    for packed, mask, row_len, L, cap in index_batches(combined, k, w):
+        want = align_kernels.minimizers_torch(packed, mask, L, k, w, cap, row_len)
+        n_kept = int(want[4])
+        if n_kept > cap:  # the build's retry
+            cap = n_kept
+            want = align_kernels.minimizers_torch(packed, mask, L, k, w, cap, row_len)
+        got = align_kernels.minimizers(packed, mask, L, k, w, cap, row_len)
+        out["max_abs_err"] = max(out["max_abs_err"], check_equal("minimizers, index batch", got, want))
+        del got, want
+        hi, lo = extract_minimizers_torch(unpack_code_batch(packed, mask, L), k, w)[:2]
+        in_row = torch.arange(hi.shape[1], device="cuda")[None, :] < (row_len.long() - k - w + 2)[:, None]
+        live = int((in_row & ((hi != 0xFFFFFFFF) | (lo != 0xFFFFFFFF))).sum())
+        del hi, lo, in_row
+        mb.append((packed.numel() + mask.numel(), live, n_kept))
+        out["batches"].append([packed.shape[0], L, int(row_len.sum()), live, cap, n_kept])
+        out["calls"] += 1
+        out["ms"] += cuda_ms(lambda: align_kernels.minimizers(packed, mask, L, k, w, cap, row_len))
+        out["plain_ms"] += cuda_ms(
+            lambda: align_kernels.minimizers_torch(packed, mask, L, k, w, cap, row_len), iters=1, warmup=1)
+    out["bound_ms"], out["bound_by"] = minimizer_bound_ms(mb, k, sms, clock_hz)
+    out["batches"].insert(0, ["rows", "L", "bases", "windows_with_valid_kmer", "cap", "kept"])
+    return out
+
+
+def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged, combined: str,
+                        sms: int, clock_hz: float) -> dict:
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
     kn = align_kernels
@@ -985,6 +1140,23 @@ def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged
                     err["minimizers"] = max(err["minimizers"], check_equal(
                         f"minimizers k={k} w={w} L={L} cap={cap}", got, want))
                     cases["minimizers"].append([k, w, L, cap, row_len is not None, int(want[4])])
+    # minimizers at its tile edges, with and without row lengths, at a cap
+    # that holds every kept window and one that overflows
+    for name, codes, row_len, k, w in minimizer_edge_sets(seed, big=True):
+        packed, mask, L = pack_code_batch(codes)
+        packed, mask = torch.from_numpy(packed).cuda(), torch.from_numpy(mask).cuda()
+        for rl in (None, torch.from_numpy(row_len).cuda()):
+            n = int(kn.minimizers_torch(packed, mask, L, k, w, 1, rl)[4])
+            for cap in (n + 100, max(1, n // 3)):
+                got = kn.minimizers(packed, mask, L, k, w, cap, rl)
+                want = kn.minimizers_torch(packed, mask, L, k, w, cap, rl)
+                err["minimizers"] = max(err["minimizers"], check_equal(
+                    f"minimizers, set {name} cap={cap} row_len={rl is not None}", got, want))
+                cases["minimizers"].append([name, *codes.shape, k, w, cap, rl is not None, n])
+    # dynamic tile ids never change the order: 20 calls, one answer
+    first = kn.minimizers(packed, mask, L, k, w, n, rl)
+    for _ in range(19):
+        check_equal(f"minimizers, set {name}, a repeated call", kn.minimizers(packed, mask, L, k, w, n, rl), first)
     # anchors and chains at the edges: a repetitive index, caps that overflow
     eidx, rows = edge_world(rng)
     eal = MinimizerAligner(eidx, device="cuda")
@@ -1050,6 +1222,8 @@ def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged
         stats["anchors"]["plain_ms"] += cuda_ms(lambda: kn.anchors_torch(*args), iters=3, warmup=1)
         stats["chains"]["ms"] += cuda_ms(lambda: kn.chains(*cargs))
         stats["chains"]["plain_ms"] += cuda_ms(lambda: kn.chains_torch(*cargs), iters=3, warmup=1)
+    stats["minimizers"]["index_pass"] = minimizer_index_pass(combined, k, w, sms, clock_hz)
+    err["minimizers"] = max(err["minimizers"], stats["minimizers"]["index_pass"].pop("max_abs_err"))
     U = int(aln._uniq.numel())
     for name, (bound, by) in (("minimizers", minimizer_bound_ms(mb, k, sms, clock_hz)),
                               ("anchors", anchor_bound_ms(ab, U, sms, clock_hz)),
@@ -1089,8 +1263,9 @@ def main() -> int:
     try:
         small_ref, launches = phase_slice(tmp, cfg)
         phase_scale(tmp, cfg, args.seed, small_ref, kernels["screen_count"]["ms"])
-        index, staged, align_launched = phase_align(tmp, cfg)
-        align_stats = phase_align_kernels(args.seed, cfg, index, staged, sms, clock_mhz * 1e6)
+        index, staged, align_launched, combined = phase_align(tmp, cfg)
+        align_stats = phase_align_kernels(args.seed, cfg, index, staged, combined, sms,
+                                          clock_mhz * 1e6)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

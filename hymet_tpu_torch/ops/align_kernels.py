@@ -130,16 +130,18 @@ def minimizers(
         raise ValueError(f"minimizers: need 1 <= B <= 65535 and 1 <= cap < 2^31, got {B}, {cap}")
     dev = packed.device
     nb = B * _ceil(nw, _MIN_TILE)
-    counts = torch.empty(nb, dtype=torch.int32, device=dev)
-    offsets = torch.empty(nb, dtype=torch.int64, device=dev)
+    if nb >= 2**31:
+        raise ValueError(f"minimizers: {nb} tiles of {_MIN_TILE} windows, need fewer than 2^31")
+    # each tile's status word, then the tile counter (zeroed by the launch)
+    status = torch.empty(nb + 1, dtype=torch.int64, device=dev)
     n_kept = torch.empty(1, dtype=torch.int64, device=dev)
     out_hash = torch.empty(cap, dtype=torch.int64, device=dev)
     out_pos = torch.empty(cap, dtype=torch.int32, device=dev)
     out_strand = torch.empty(cap, dtype=torch.uint8, device=dev)
     out_row = torch.empty(cap, dtype=torch.int32, device=dev)
     _launch("minimizers", dev, packed.data_ptr(), mask.data_ptr(), B, W, M, L, k, w,
-            None if row_len is None else row_len.data_ptr(), nb, counts.data_ptr(),
-            offsets.data_ptr(), n_kept.data_ptr(), cap, out_hash.data_ptr(),
+            None if row_len is None else row_len.data_ptr(), nb, status.data_ptr(),
+            n_kept.data_ptr(), cap, out_hash.data_ptr(),
             out_pos.data_ptr(), out_strand.data_ptr(), out_row.data_ptr())
     minimizers.launches += 1
     return out_hash, out_pos, out_strand, out_row, n_kept

@@ -64,7 +64,7 @@ class KernelLibrary:
             (lib.kmer_hash_launch, [_P, _P, _P, _I, _I, _I, _I, _P]),
             (lib.screen_count_launch, [_P, _P, _I, _I, _I, _I, _I, _P, _I, _LL, _P, _P, _I, _P]),
             (lib.minimizers_launch,
-             [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _LL, _P, _P, _P, _P, _P]),
+             [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _LL, _P, _P, _P, _P, _P]),
             (lib.anchors_launch,
              [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _P,
               _P, _P]),

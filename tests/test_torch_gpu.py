@@ -172,6 +172,65 @@ def test_minimizers_kernel_matches_plain(L, k, w):
                 assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+MIN_SETS = {name: rest for name, *rest in chip_smoke.minimizer_edge_sets(big=True)}
+
+
+def _dirty(*sizes):
+    """Fill and free blocks of the allocator, so that an output slot a kernel
+    leaves unwritten shows."""
+    dirty = [torch.full((n,), -1, dtype=torch.int64, device="cuda") for n in sizes]
+    del dirty
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(MIN_SETS))
+def test_minimizers_kernel_matches_plain_at_tile_edges(name):
+    """Every output bit for bit, one launch a call, on the code batches at
+    the kernel's tile edges (chip_smoke.minimizer_edge_sets: kept windows in
+    a tile's first and last slot, minima in the halos, whole tiles of N,
+    row_len mid-tile, every window kept, w = 256, 4480 tiles), with and
+    without row lengths, at a cap that holds every kept window and one that
+    overflows."""
+    _need_card()
+    from hymet_tpu_torch.ops import align_kernels as ak
+
+    codes, row_len, k, w = MIN_SETS[name]
+    packed, mask, L = pack_code_batch(codes)
+    packed, mask = torch.from_numpy(packed).cuda(), torch.from_numpy(mask).cuda()
+    for rl in (None, torch.from_numpy(row_len).cuda()):
+        n = int(ak.minimizers_torch(packed, mask, L, k, w, 1, rl)[4])
+        for cap in (n + 100, max(1, n // 3)):
+            _dirty(cap, codes.size // 2048 + 64)
+            before = ak.minimizers.launches
+            got = ak.minimizers(packed, mask, L, k, w, cap, rl)
+            want = ak.minimizers_torch(packed, mask, L, k, w, cap, rl)
+            torch.cuda.synchronize()
+            assert ak.minimizers.launches == before + 1
+            assert int(want[4]) == n
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_minimizers_kernel_gives_one_order_across_calls():
+    """Tiles take their ids from an atomic counter in whatever order the
+    blocks start: 20 calls on one input give identical outputs."""
+    _need_card()
+    from hymet_tpu_torch.ops import align_kernels as ak
+
+    codes, row_len, k, w = MIN_SETS["more_tiles_than_resident"]
+    packed, mask, L = pack_code_batch(codes)
+    packed, mask = torch.from_numpy(packed).cuda(), torch.from_numpy(mask).cuda()
+    rl = torch.from_numpy(row_len).cuda()
+    first = ak.minimizers(packed, mask, L, k, w, 1 << 20, rl)
+    assert 0 < int(first[4]) <= 1 << 20
+    for _ in range(19):
+        again = ak.minimizers(packed, mask, L, k, w, 1 << 20, rl)
+        torch.cuda.synchronize()
+        for a, b in zip(again, first):
+            assert torch.equal(a, b)
+
+
 @pytest.fixture(scope="module")
 def repeat_world():
     """A repetitive index (a unit in 16 copies, another in 17: hashes at

@@ -48,23 +48,31 @@ Phases, each printed as one JSON line with its seconds:
              equal the numpy twin's on the first 5 Mbp or more of the
              reference. Then the index build's seconds, ``map_batch``'s
              (median of 3), the record count, peak device memory, the
-             overflow boosts and one profiled ``map_batch``; its
-             ``minimizers`` kernels, and the device activities of one
-             ``minimizers`` call (at most 3: the tile kernel, the tail
-             fill and the memset of the status words).
+             overflow boosts and one profiled ``map_batch``, which must run
+             no torch sort or gather kernel (its anchors come sorted from
+             the ``anchors`` kernel); its ``minimizers`` kernels, and the
+             device activities of one ``minimizers`` call (at most 3: the
+             tile kernel, the tail fill and the memset of the status words)
+             and of one ``anchors`` call (at most ``SortLayout.launches``:
+             search, scan, expansion, and a scatter a sort pass).
 7. align kernels — ``minimizers``, ``anchors`` and ``chains`` against their
              plain versions bit for bit, on the 16 staged gut batches (the
              main path's shapes, with that index) and at the edge cases
              (N runs, padded, short and all-padding rows, a row shorter than
              k + w, k and w at their limits, repeats with equal hashes in a
-             window, a repetitive index and caps that overflow), and
+             window, a repetitive index and caps that overflow),
+             ``anchors`` on the worlds at its search's and sort's edges
+             (:func:`anchor_edge_sets`, at two acaps), and
              ``chains`` on the synthetic sets at its tile edges
              (:func:`chain_edge_sets`), ``minimizers`` on the code batches
              at its tile edges (:func:`minimizer_edge_sets`, with and
              without row lengths, 20 calls of one giving one answer);
              each kernel's time, its plain version's and its bound (see
-             :func:`minimizer_ops`), summed over one pass of the batches,
-             and each batch's longest chain; and ``minimizers`` on the
+             :func:`minimizer_ops`, :func:`anchor_bound_ms`), summed over
+             one pass of the batches, ``anchors``' library yardstick
+             (``torch.sort`` of the filled prefix and its two gathers), the
+             bucket table and each batch's search loads and longest chain;
+             and ``minimizers`` on the
              index build's batches with their row lengths (the
              ``index_pass``: held bit for bit, timed, bounded).
 
@@ -622,37 +630,38 @@ def minimizer_bound_ms(batches, k: int, sms: int, clock_hz: float) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def search_steps(U: int) -> int:
-    """Dependent loads of a lower-bound search over U sorted keys."""
-    return max(1, math.ceil(math.log2(U + 1)))
+def search_stats(hash_: torch.Tensor, tables: align_kernels.AnchorTables) -> tuple:
+    """(dependent loads, bucket-table entries, unique-hash entries) of the
+    anchors kernel's search for these hashes (``bucket_lower_bound``, step
+    by step as the kernel takes it): a bucket's two bounds, a load a step,
+    and the entry it lands on. The loads are summed over the hashes; each
+    table entry is counted once, however often the searches read it."""
+    t, lo, probes = align_kernels.bucket_lower_bound(hash_, tables.uniq, tables.bucket, tables.shift)
+    landed = lo[lo < tables.bucket[t + 1]]
+    loads = sum(int(p.numel()) for p in probes) + int(landed.numel())
+    buckets = torch.unique(torch.cat([t, t + 1])).numel()
+    return loads, buckets, torch.unique(torch.cat([*probes, landed])).numel()
 
 
-def search_entries(U: int, n: int) -> int:
-    """Table entries that n lower-bound searches over U sorted keys touch at
-    most: level l of the search holds at most 2^l distinct probes, and at
-    most one a query."""
-    return min(U, sum(min(1 << level, n) for level in range(search_steps(U))))
-
-
-def anchor_bound_ms(batches, U: int, sms: int, clock_hz: float) -> tuple:
+def anchor_bound_ms(batches, sms: int, clock_hz: float) -> tuple:
     """(least time in ms, what bounds it) for ``anchors`` over batches given
-    as (kept minimizers n, anchors a, acap), against U unique hashes:
+    as (kept minimizers n, search loads, bucket entries, unique-hash
+    entries, anchors a, acap), the search counts from :func:`search_stats`:
 
     - bytes: per kept minimizer its 17 bytes read and one 8-byte run-offset
-      row; each unique-hash table entry the searches touch read once a
-      launch (8 bytes, search_entries(U, n) of them); per anchor its
-      8-byte payload row read and its key, qpos and rpos (16 bytes)
-      written; past the last anchor the 8-byte sentinel key, which the
-      reference writes too (the sort after it orders all acap keys). A
-      search's repeated dependent loads of an entry are L2 hits, not
-      memory bytes: the whole table (8 U bytes, 33 MB at U = 4.17 M) fits
-      in the card's 50 MB L2;
-    - operations: search_steps(U) steps of 6 ALU instructions per kept
-      minimizer, about 12 per anchor for its keys."""
-    steps = search_steps(U)
-    nbytes = sum(n * (17 + 8) + 8 * search_entries(U, n) + 24 * a + 8 * max(acap - a, 0)
-                 for n, a, acap in batches)
-    n_alu = sum(n * 6 * steps + 12 * a for n, a, _ in batches)
+      row; each bucket-table entry (4 bytes) and unique hash (8 bytes) the
+      searches touch, read once; per anchor kept (min(a, acap)) its 8-byte
+      payload row read and its sorted key, qpos and rpos (16 bytes)
+      written once; per empty slot past them the sentinel key and zero qpos
+      and rpos (16 bytes), which the reference writes too. The sort's
+      passes over the anchors are the kernel's design, not the function's;
+    - operations: 6 ALU instructions a search load, about 12 per anchor for
+      its keys."""
+    nbytes = n_alu = 0
+    for n, loads, buckets, entries, a, acap in batches:
+        filled = min(a, acap)
+        nbytes += n * (17 + 8) + 4 * buckets + 8 * entries + 24 * filled + 16 * (acap - filled)
+        n_alu += 6 * loads + 12 * filled
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops_ms(n_alu, 0, sms, clock_hz)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -781,6 +790,7 @@ def phase_align(tmp: str, cfg: RunConfig) -> tuple:
     peak = torch.cuda.max_memory_allocated()
     prof = profile_run(lambda: aligner.map_batch(names, seqs, staged=staged))
     minimizer_split = minimizer_activities(prof, aligner, index, staged)
+    anchor_split = anchor_activities(prof, aligner, staged)
     emit("align", t0, selected_genomes=n_selected, reference_genomes=n_genomes,
          reference_bp=int(index.lengths.sum()), reference_sequences=len(index.names),
          index_minimizers=index.n_minimizers, index_build_s=index_s,
@@ -788,7 +798,8 @@ def phase_align(tmp: str, cfg: RunConfig) -> tuple:
          map_batch_s=times, map_batch_median_s=statistics.median(times), records=n_records,
          paf_identical_to_plain=True, launches=launches, staged_batches=len(staged.device),
          boosts={"cap": aligner._cap_boost, "acap": aligner._acap_boost, "ccap": aligner._ccap_boost},
-         max_memory_allocated=peak, map_batch_profile=prof, minimizers_device=minimizer_split)
+         max_memory_allocated=peak, map_batch_profile=prof, minimizers_device=minimizer_split,
+         anchors_device=anchor_split)
     return index, staged, launches, combined
 
 
@@ -821,6 +832,39 @@ def minimizer_activities(prof: dict, aligner: MinimizerAligner, index: Minimizer
                              f"({calls['device_ms']}) and {kernels} in map_batch")
     return {"map_batch_kernels": kernels, "calls": calls["device_ms"],
             "activities_per_call": per_call}
+
+
+# torch's sort and gather kernels: none may run in map_batch, whose anchors
+# come sorted from the anchors kernel
+LIBRARY_SORT_GATHER = ("sort", "gather", "index_elementwise", "indexselect", "index_select")
+
+
+def anchor_activities(prof: dict, aligner: MinimizerAligner, staged) -> dict:
+    """The anchors kernels in a profiled map_batch (name, ms, count), and
+    the device activities of PROFILED_CALLS ``anchors`` calls alone on the
+    first staged batch, per call. Raises if map_batch ran a torch sort or
+    gather kernel, or if a call makes more device activities than
+    ``SortLayout.launches`` states or no scatter pass shows."""
+    library = [row for row in prof["device_ms"]
+               if any(word in row[0].lower() for word in LIBRARY_SORT_GATHER)]
+    packed, mask, B, L = staged.device[0]
+    NW, cap = aligner._minimizer_cap(B, L)
+    acap = aligner._device_caps(B, NW, cap)[0]
+    cfg, tables = aligner.cfg, aligner._tables
+    mz = align_kernels.minimizers(packed, mask, L, aligner.index.k, aligner.index.w, cap)
+    args = (*mz, tables, cfg.max_occ, cfg.band_bits, acap, B, L)
+    stated = align_kernels.sort_layout(tables, B, L, cfg.band_bits).launches
+    calls = profile_run(lambda: [align_kernels.anchors(*args) for _ in range(PROFILED_CALLS)])
+    per_call = {name: round(count / PROFILED_CALLS) for name, _ms, count in calls["device_ms"]}
+    activities = sum(per_call.values())
+    if library or activities > stated or \
+            not any("anchor_digit_scatter_kernel" in name for name in per_call):
+        raise AssertionError(f"map_batch ran torch sort or gather kernels {library}, or an anchors "
+                             f"call made {activities} device activities (stated {stated}): "
+                             f"{calls['device_ms']}")
+    return {"map_batch_kernels": [row for row in prof["device_ms"] if "anchor" in row[0]],
+            "calls": calls["device_ms"], "activities_per_call": per_call,
+            "stated_launches": stated}
 
 
 def check_equal(name: str, got, want) -> float:
@@ -999,6 +1043,93 @@ def chain_edge_sets(seed: int = 0, longest: bool = False) -> list:
     return sets
 
 
+MAX_OCC = 16  # AlignerConfig's default
+
+
+def anchor_edge_sets(seed: int = 0) -> list:
+    """Worlds for ``anchors`` at its search's and sort's edges, as (name,
+    genomes [(name, bytes)], codes [B, L] uint8, band_bits, acap): an index
+    of the genomes at k = w = 19 and query rows against it, mapped at
+    max_occ 16 with a cap that holds every kept minimizer.
+    ``all_ties``: a 60 bp unit 16 times in tandem, whose minimizers occur
+    15-16 times each in one sequence, in query rows that repeat the tandem
+    (a minimizer's anchors and its neighbours' share a band: runs of equal
+    keys, over several sort tiles). ``overflow``: the same at an acap below
+    n_anchors. ``empty_rows``: rows without anchors first, in the middle
+    and last, the others holding both strands of one sequence (rel 0 and 1
+    under one qid and seq, rel 1 first and on lower bands). ``no_anchors``: random rows, n_anchors = 0.
+    ``many_short_refs``: 3000 references of 200 bp in 64 rows, some reverse
+    complemented, at band_bits 1: a compact key of 43 bits (the gut world's
+    is about 28), held in 64 bits. ``band_extremes``: the start of the
+    longest reference at the end of a row (the most negative diagonal), its
+    end reverse complemented at the end of a row (rel = 1 at the largest
+    rpos + qpos) and at the start of a row, at band_bits 1 and 24."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+
+    def bases(n: int) -> np.ndarray:
+        return rng.integers(0, 4, n).astype(np.uint8)
+
+    def text(codes: np.ndarray) -> bytes:
+        return acgt[codes].tobytes()
+
+    def revcomp(codes: np.ndarray) -> np.ndarray:
+        return (3 - codes)[::-1]
+
+    sets = []
+    tandem = np.tile(bases(60), 16)
+    genomes = [("tandem", text(np.concatenate([bases(500), tandem, bases(500)]))),
+               ("other", text(bases(5000)))]
+    codes = np.full((8, 8192), 4, np.uint8)
+    for r in range(8):
+        row = np.concatenate([np.concatenate([tandem, bases(100)]) for _ in range(6)])
+        codes[r, : len(row)] = row
+    sets.append(("all_ties", genomes, codes, 11, 1 << 17))
+    sets.append(("overflow", genomes, codes, 11, 5000))
+    genome = bases(20000)
+    codes = bases(7 * 4096).reshape(7, 4096)
+    for r in (1, 2, 4, 5):  # both strands of one sequence in a row, rel 1 at lower bands
+        at, at2 = int(rng.integers(12000, 20000 - 2048)), int(rng.integers(0, 4000))
+        codes[r] = np.concatenate([revcomp(genome[at2 : at2 + 2048]), genome[at : at + 2048]])
+    codes[3, 2000:] = 4
+    sets.append(("empty_rows", [("g", text(genome))], codes, 11, 1 << 15))
+    sets.append(("no_anchors", [("g", text(genome))], bases(4 * 2048).reshape(4, 2048), 11, 4096))
+    refs = [bases(200) for _ in range(3000)]
+    codes = np.full((64, 2048), 4, np.uint8)
+    for r in range(64):
+        pieces = [refs[i] if rng.random() < 0.5 else revcomp(refs[i])
+                  for i in rng.integers(0, len(refs), 10)]
+        row = np.concatenate(pieces)[:2048]
+        codes[r, : len(row)] = row
+    sets.append(("many_short_refs", [(f"s{i}", text(x)) for i, x in enumerate(refs)], codes, 1,
+                 1 << 16))
+    long_g, short_g = bases(30000), bases(3000)
+    L = 4096
+    codes = np.full((4, L), 4, np.uint8)
+    codes[0, L - 200 :] = long_g[:200]
+    codes[1, L - 1000 :] = revcomp(long_g[-1000:])
+    codes[2, :1000] = revcomp(long_g[-1000:])
+    codes[3] = bases(L)
+    for band_bits in (1, 24):
+        sets.append((f"band_extremes_{band_bits}", [("long", text(long_g)), ("short", text(short_g))],
+                     codes, band_bits, 1 << 14))
+    return sets
+
+
+def anchor_inputs(genomes, codes: np.ndarray, device="cpu") -> tuple:
+    """An edge set's index (built on the CPU), its aligner's anchor tables
+    and the minimizers of its rows (``minimizers_torch``, a cap of every
+    window), on `device`: (index, tables, minimizer outputs, B, L)."""
+    index = MinimizerIndex.build(genomes, device="cpu")
+    tables = MinimizerAligner(index, device=device)._tables
+    packed, mask, L = pack_code_batch(codes)
+    B = codes.shape[0]
+    cap = B * (L - index.k - index.w + 2)
+    mz = align_kernels.minimizers_torch(torch.from_numpy(packed).to(device),
+                                        torch.from_numpy(mask).to(device), L, index.k, index.w, cap)
+    return index, tables, mz, B, L
+
+
 MIN_TILE = 2048  # windows a block of csrc/minimizers.cu owns
 MIN_ROWS, MIN_L = 4, 7 * MIN_TILE  # the CPU-sized edge sets: 7 tiles a row at k + w <= 38
 
@@ -1169,17 +1300,27 @@ def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged
     for cap in (8192, 1000):
         mz = kn.minimizers_torch(packed, mask, L, 19, 19, cap)
         for acap in (1 << 17, 3000):
-            got = kn.anchors(*mz, eal._uniq, eal._roff2, eal._ps, 16, 11, acap, len(rows), L)
-            want = kn.anchors_torch(*mz, eal._uniq, eal._roff2, eal._ps, 16, 11, acap, len(rows), L)
+            got = kn.anchors(*mz, eal._tables, MAX_OCC, 11, acap, len(rows), L)
+            want = kn.sorted_anchors_torch(*mz, eal._tables, MAX_OCC, 11, acap, len(rows), L)
             err["anchors"] = max(err["anchors"], check_equal(f"anchors cap={cap} acap={acap}", got, want))
             cases["anchors"].append([cap, acap, int(mz[4]), int(want[3])])
-            sorted_ = kn.sort_anchors(*want[:3])
+            sorted_ = want[:3]
             for ccap in (1024, 7):
                 got = kn.chains(*sorted_, 19, 3, 40, ccap)
                 want_c = kn.chains_torch(*sorted_, 19, 3, 40, ccap)
                 err["chains"] = max(err["chains"], check_equal(
                     f"chains cap={cap} acap={acap} ccap={ccap}", got, want_c))
                 cases["chains"].append([cap, acap, ccap, int(want_c[1]), int(want_c[0][:, 3].max())])
+    # anchors at its search's and sort's edges
+    for name, genomes, codes, band_bits, acap in anchor_edge_sets(seed):
+        _index, tables, mz, B, L = anchor_inputs(genomes, codes, device="cuda")
+        lay = kn.sort_layout(tables, B, L, band_bits)
+        for cut in (acap, max(1, acap // 7)):
+            want = kn.sorted_anchors_torch(*mz, tables, MAX_OCC, band_bits, cut, B, L)
+            err["anchors"] = max(err["anchors"], check_equal(
+                f"anchors, set {name} acap={cut}", kn.anchors(*mz, tables, MAX_OCC, band_bits, cut, B, L), want))
+            cases["anchors"].append([name, B, L, band_bits, cut, int(mz[4]), int(want[3]), lay.bits,
+                                     lay.passes])
     # chains at its tile edges
     for name, key, qpos, rpos, cargs in chain_edge_sets(seed, longest=True):
         cin = tuple(torch.from_numpy(x).cuda() for x in (key, qpos, rpos))
@@ -1189,7 +1330,9 @@ def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged
     # the main path's shapes: the 16 staged gut batches against the gut index
     aln = MinimizerAligner(index, AlignerConfig(batch_pad=cfg.align_batch_pad), device="cuda")
     k, w = index.k, index.w
-    stats = {name: {"ms": 0.0, "plain_ms": 0.0} for name in cases}
+    stats = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None} for name in cases}
+    stats["anchors"].update(library_ms=0.0, library="torch.sort(stable=True) of the filled "
+                            "prefix's keys and the two gathers of qpos and rpos by its permutation")
     shapes, mb, ab, cb = [], [], [], []
     for packed, mask, B, L in staged.device:
         NW, cap = aln._minimizer_cap(B, L)
@@ -1197,10 +1340,11 @@ def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged
         mz = kn.minimizers(packed, mask, L, k, w, cap)
         err["minimizers"] = max(err["minimizers"], check_equal(
             "minimizers, staged batch", mz, kn.minimizers_torch(packed, mask, L, k, w, cap)))
-        args = (*mz, aln._uniq, aln._roff2, aln._ps, aln.cfg.max_occ, aln.cfg.band_bits, acap, B, L)
+        args = (*mz, aln._tables, aln.cfg.max_occ, aln.cfg.band_bits, acap, B, L)
         an = kn.anchors(*args)
-        err["anchors"] = max(err["anchors"], check_equal("anchors, staged batch", an, kn.anchors_torch(*args)))
-        sorted_ = kn.sort_anchors(*an[:3])
+        err["anchors"] = max(err["anchors"], check_equal("anchors, staged batch", an,
+                                                         kn.sorted_anchors_torch(*args)))
+        sorted_ = an[:3]
         cargs = (*sorted_, k, aln.cfg.min_cnt, aln.cfg.min_mlen, ccap)
         ch = kn.chains(*cargs)
         err["chains"] = max(err["chains"], check_equal("chains, staged batch", ch, kn.chains_torch(*cargs)))
@@ -1210,7 +1354,18 @@ def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged
         hi, lo = extract_minimizers_torch(unpack_code_batch(packed, mask, L), k, w)[:2]
         live = int(((hi != 0xFFFFFFFF) | (lo != 0xFFFFFFFF)).sum())
         mb.append((packed.numel() + mask.numel(), live, n_kept))
-        ab.append((n_kept, n_anchors, acap))
+        ab.append((n_kept, *search_stats(mz[0][:n_kept], aln._tables), n_anchors, acap))
+        # the part of the function a library sort can do: the filled prefix
+        # of the unsorted anchors, sorted stably, its payload gathered
+        fill = min(n_anchors, acap)
+        ukey, uqpos, urpos = (x[:fill] for x in kn.anchors_torch(
+            *mz, aln._tables.uniq, aln._tables.roff, aln._tables.ps, aln.cfg.max_occ,
+            aln.cfg.band_bits, acap, B, L)[:3])
+
+        def library():
+            perm = torch.sort(ukey, stable=True)[1]
+            return uqpos[perm], urpos[perm]
+
         cb.append((n_anchors, n_chains))
         # the longest chain of valid anchors: every chain passes min_cnt 1, min_mlen 0
         longest = int(kn.chains_torch(*sorted_, k, 1, 0, acap)[0][:, 3].max())
@@ -1219,19 +1374,26 @@ def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged
         stats["minimizers"]["plain_ms"] += cuda_ms(
             lambda: kn.minimizers_torch(packed, mask, L, k, w, cap), iters=3, warmup=1)
         stats["anchors"]["ms"] += cuda_ms(lambda: kn.anchors(*args))
-        stats["anchors"]["plain_ms"] += cuda_ms(lambda: kn.anchors_torch(*args), iters=3, warmup=1)
+        stats["anchors"]["plain_ms"] += cuda_ms(lambda: kn.sorted_anchors_torch(*args), iters=3, warmup=1)
+        stats["anchors"]["library_ms"] += cuda_ms(library)
         stats["chains"]["ms"] += cuda_ms(lambda: kn.chains(*cargs))
         stats["chains"]["plain_ms"] += cuda_ms(lambda: kn.chains_torch(*cargs), iters=3, warmup=1)
     stats["minimizers"]["index_pass"] = minimizer_index_pass(combined, k, w, sms, clock_hz)
     err["minimizers"] = max(err["minimizers"], stats["minimizers"]["index_pass"].pop("max_abs_err"))
-    U = int(aln._uniq.numel())
+    U = int(aln._tables.uniq.numel())
+    sizes = torch.diff(aln._tables.bucket[:-1])
     for name, (bound, by) in (("minimizers", minimizer_bound_ms(mb, k, sms, clock_hz)),
-                              ("anchors", anchor_bound_ms(ab, U, sms, clock_hz)),
+                              ("anchors", anchor_bound_ms(ab, sms, clock_hz)),
                               ("chains", chain_bound_ms(cb, sms, clock_hz))):
         stats[name].update(bound_ms=bound, bound_by=by, max_abs_err=err[name])
     emit("align_kernels", t0, cases=cases, identical=True, unique_hashes=U,
-         search_steps=search_steps(U),
-         search_entries=[search_entries(U, n) for n, _, _ in ab], minimizer_ops=minimizer_ops(k), per_pass=stats,
+         bucket_table={"bits": int(sizes.numel()).bit_length() - 1, "shift": aln._tables.shift,
+                       "largest_bucket": int(sizes.max()),
+                       "worst_steps": int(sizes.max()).bit_length(),
+                       "empty_buckets": int((sizes == 0).sum())},
+         anchor_search=[["kept", "loads", "bucket_entries", "unique_entries", "anchors", "acap"], *ab],
+         anchor_layout=kn.sort_layout(aln._tables, *staged.device[0][2:], aln.cfg.band_bits)._asdict(),
+         minimizer_ops=minimizer_ops(k), per_pass=stats,
          batches=[["rows", "L", "windows_with_valid_kmer", "cap", "kept", "acap", "anchors",
                    "ccap", "chains", "longest_chain"], *shapes])
     return stats
@@ -1282,10 +1444,10 @@ def main() -> int:
          **kernels["screen_count"], "library_ms": None},
         *({"name": name, "route": "cuda", "source": f"hymet_tpu_torch/csrc/{name}.cu",
            "replaces": replaces, "launches": align_launched[name], "main_path": True,
-           **align_stats[name], "library_ms": None}
+           **align_stats[name]}
           for name, replaces in (
               ("minimizers", "hymet_tpu/ops/minimizer.py:241"),
-              ("anchors", "hymet_tpu/models/aligner.py:509"),
+              ("anchors", "hymet_tpu/models/aligner.py:391, :509 (its lax.sort :696)"),
               ("chains", "hymet_tpu/models/aligner.py:709"))),
     ]}))
     print(json.dumps({"ok": True, "device": {

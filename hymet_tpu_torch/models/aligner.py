@@ -4,8 +4,9 @@
 Produces PAF records whose block extents drive the downstream
 coverage-weighted LCA. Per staged batch of <= 64 contig rows the device
 runs three hand-written kernels (:mod:`hymet_tpu_torch.ops.align_kernels`):
-minimizers -> anchors (index search, expansion, packed keys) -> stable
-sort -> chains, and returns only the good chains' [n, 9] rows; the host
+minimizers -> anchors (bucket-confined index search, expansion, packed
+keys, their stable sort) -> chains, and returns only the good chains'
+[n, 9] rows; the host
 then picks primaries and secondaries and emits PAF. Batches are
 dispatched four ahead of the one being finished, so the card works while
 the host reads counts and builds records; a batch's three counts come
@@ -33,10 +34,12 @@ import torch
 from hymet_tpu_torch.io.fasta import encode_seq, pack_code_batch
 from hymet_tpu_torch.io.minimizer_index import MinimizerIndex
 from hymet_tpu_torch.io.paf import PafRecord
-from hymet_tpu_torch.ops.align_kernels import KERNELS, SEQ_BITS, AlignOps, sort_anchors
+from hymet_tpu_torch.ops.align_kernels import KERNELS, SEQ_BITS, AlignOps, anchor_tables
 from hymet_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("hymet_tpu_torch.aligner")
+
+BUCKET_BITS_MAX = 22  # the anchor search's largest bucket table: 2^22 + 2 int32
 
 
 @dataclass
@@ -62,8 +65,10 @@ def build_search_tables(
     (uniq int64 [U] — the unique hashes as uint64 bit patterns, ascending
     as unsigned; roff2 int32 [U, 2] — each unique hash's run (start, end)
     in the index; ps int32 [M, 2] — each entry's (pos, seq << 1 | strand)).
-    The JAX package keeps ``uniq`` as (hi, lo) uint32 pairs and adds a
-    top-bits bucket table, which confines nothing at 2k <= 38-bit hashes."""
+    The JAX package keeps ``uniq`` as (hi, lo) uint32 pairs; its
+    top-bits bucket table, on the 64-bit word, confines nothing at
+    2k <= 38-bit hashes (:func:`build_bucket_table` takes the hash's own
+    top bits)."""
     M = int(hashes.shape[0])
     if M == 0:
         return (np.zeros(0, dtype=np.int64), np.zeros((0, 2), dtype=np.int32),
@@ -77,6 +82,27 @@ def build_search_tables(
         [pos.astype(np.int32), (seq_id.astype(np.int32) << 1) | strand.astype(np.int32)], axis=1
     )
     return np.ascontiguousarray(hashes[starts]).view(np.int64), roff2, ps
+
+
+def build_bucket_table(uniq: np.ndarray, k: int) -> Tuple[np.ndarray, int]:
+    """The anchor search's bucket table on the top `bits` bits of the
+    2k-bit hash: (bucket int32 [2^bits + 2], shift = 2k - bits), where
+    ``bucket[t]`` is the first u with ``uniq[u] >> shift >= t`` (unsigned)
+    and the last two entries are U, so that a hash's lower bound lies in
+    ``[bucket[t], bucket[t + 1]]``, t = min(hash >> shift, 2^bits).
+    bits = ceil(log2(U + 1)), within [1, min(2k, BUCKET_BITS_MAX)]: about
+    one entry a bucket on average. An index's hashes are window minima, so
+    the low buckets hold many times the average (and queries, minimizers
+    too, fall there as often): on a random 4 Mbp index the searches average
+    3 steps and take at most 5 (4.6 and 6 at a quarter of the buckets)."""
+    U = int(uniq.shape[0])
+    bits = min(2 * k, BUCKET_BITS_MAX, max(1, int(np.ceil(np.log2(U + 1)))))
+    shift = 2 * k - bits
+    bucket = np.empty((1 << bits) + 2, dtype=np.int32)
+    bucket[:-1] = np.searchsorted(uniq.view(np.uint64) >> np.uint64(shift),
+                                  np.arange((1 << bits) + 1, dtype=np.uint64))
+    bucket[-1] = U
+    return bucket, shift
 
 
 def expected_anchor_occ(hashes: np.ndarray, max_occ: int) -> float:
@@ -226,9 +252,8 @@ class MinimizerAligner:
         self.cfg = config or AlignerConfig()
         self.ops = ops
         uniq, roff2, ps = build_search_tables(index.hashes, index.seq_id, index.pos, index.strand)
-        self._uniq = torch.from_numpy(uniq).to(self.dev)
-        self._roff2 = torch.from_numpy(roff2).to(self.dev)
-        self._ps = torch.from_numpy(ps).to(self.dev)
+        self._tables = anchor_tables(uniq, roff2, ps, *build_bucket_table(uniq, index.k),
+                                     len(index.names), self.dev)
         # sticky overflow-retry multipliers (see _finish_batch)
         self._cap_boost = 1
         self._acap_boost = 1
@@ -297,7 +322,7 @@ class MinimizerAligner:
         return (batch, cap, acap, ccap, self._dispatch_fused(batch, cap, acap, ccap))
 
     def _dispatch_fused(self, batch, cap: int, acap: int, ccap: int):
-        """minimizers -> anchors -> sort -> chains for one batch, all on the
+        """minimizers -> sorted anchors -> chains for one batch, all on the
         device: (chain rows [ccap, 9], counts int64 [3] = (n_chains,
         n_kept, n_anchors))."""
         packed, mask, B, L = batch
@@ -305,11 +330,9 @@ class MinimizerAligner:
         cfg = self.cfg
         mz = self.ops.minimizers(packed, mask, L, k, w, cap)
         key, qpos, rpos, n_anchors = self.ops.anchors(
-            *mz, self._uniq, self._roff2, self._ps, cfg.max_occ, cfg.band_bits, acap, B, L
+            *mz, self._tables, cfg.max_occ, cfg.band_bits, acap, B, L
         )
-        rows, n_chains = self.ops.chains(
-            *sort_anchors(key, qpos, rpos), k, cfg.min_cnt, cfg.min_mlen, ccap
-        )
+        rows, n_chains = self.ops.chains(key, qpos, rpos, k, cfg.min_cnt, cfg.min_mlen, ccap)
         return rows, torch.cat([n_chains, mz[4], n_anchors])
 
     def _minimizer_cap(self, B: int, L: int):

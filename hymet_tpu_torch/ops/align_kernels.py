@@ -9,25 +9,24 @@ one nvcc into the same library:
 - :func:`minimizers` (``csrc/minimizers.cu``) — a staged batch's
   minimizers, compacted in row-major order (``extract_minimizers_jax``
   and the keep-flag compaction of ``_collect_sorted_impl``);
-- :func:`anchors` (``csrc/anchors.cu``) — the index search and the anchor
-  expansion with its packed sort keys (``_search_occ`` and
-  ``_collect_anchors_slots``);
+- :func:`anchors` (``csrc/anchors.cu``) — the index search, the anchor
+  expansion with its packed sort keys, and their stable sort
+  (``_search_occ`` and ``_collect_anchors_slots`` with its ``lax.sort``);
 - :func:`chains` (``csrc/chains.cu``) — the chain segmentation, filter and
   compaction of the sorted anchors (``_chain_reduce_sorted``,
   ``_chain_core``).
 
-Between the last two the anchors are sorted by their one int64 key with
-``torch.sort(stable=True)``: the order of the JAX package's stable 2-key
-``lax.sort``. Each wrapper takes its plain version only for tensors on the
-CPU; for CUDA tensors it launches its kernel (counted in ``.launches``) or
-raises. Counts (``n_kept``, ``n_anchors``, ``n_chains``) stay on the
-device as int64 [1] tensors, so a batch runs without a host sync.
+Each wrapper takes its plain version only for tensors on the CPU; for
+CUDA tensors it launches its kernel (counted in ``.launches``) or raises.
+Counts (``n_kept``, ``n_anchors``, ``n_chains``) stay on the device as
+int64 [1] tensors, so a batch runs without a host sync.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from hymet_tpu_torch.ops.compaction import slot_fill_delta, slot_fill_mono
@@ -41,9 +40,11 @@ KEY_PAD = (1 << 63) - 1  # the sort key of a padding anchor (k1 = k2 = 0xFFFFFFF
 KEY_BIG = 0xFFFFFFFF
 
 # mirrors of the kernels' block shapes (csrc/minimizers.cu kMinTile,
-# anchors.cu kAncThreads, chains.cu kTile)
+# anchors.cu kAncThreads and SortTile, chains.cu kTile)
 _MIN_TILE = 2048
 _ANC_THREADS = 256
+_SORT_TILE = {4: 4096, 8: 2048}  # items a sort tile, by compact key bytes
+_RADIX_BITS = 8
 _CHAIN_TILE = 2048
 _MAX_W = 256
 
@@ -154,6 +155,76 @@ minimizers.launches = 0
 # anchors
 
 
+class AnchorTables(NamedTuple):
+    """An index's anchor search tables on one device, and what the
+    kernel's sort needs to know of them: the sorted unique hashes ``uniq``
+    (int64 [U], ascending as unsigned), their run offsets ``roff`` (int32
+    [U, 2]) and payload ``ps`` (int32 [M, 2] = (pos, seq << 1 | strand)),
+    as :func:`hymet_tpu_torch.models.aligner.build_search_tables` makes
+    them; the bucket table (int32 [2^bits + 2]:
+    ``bucket[t]`` = the first u with ``uniq[u] >> shift >= t``, the last two
+    entries U) and its ``shift`` = 2k - bits, as
+    :func:`hymet_tpu_torch.models.aligner.build_bucket_table` makes them;
+    ``n_seq`` > every seq and ``rpos_max`` >= every pos of ``ps``."""
+
+    uniq: torch.Tensor
+    roff: torch.Tensor
+    ps: torch.Tensor
+    bucket: torch.Tensor
+    shift: int
+    n_seq: int
+    rpos_max: int
+
+
+def anchor_tables(uniq: np.ndarray, roff: np.ndarray, ps: np.ndarray, bucket: np.ndarray,
+                  shift: int, n_seq: int, device) -> AnchorTables:
+    """:class:`AnchorTables` on `device` from the host's tables."""
+    rpos_max = int(ps[:, 0].max()) if ps.shape[0] else 0
+    return AnchorTables(*(torch.from_numpy(x).to(device) for x in (uniq, roff, ps, bucket)),
+                        shift, max(1, n_seq), rpos_max)
+
+
+class SortLayout(NamedTuple):
+    """The kernel's compact sort key: ``qid << (sbits + vbits) | seq <<
+    vbits | vpart``, only the bits of the packed key that can vary in a
+    batch. ``vpart`` = ``rel << bw | (band - bmin)`` when every band is
+    below 2^24 (``bw`` >= 0), else ``(rel << 24 | band) - bmin`` (``bw`` =
+    -1); either is monotone in ``k2``, so the compact keys order and tie as
+    the packed keys do. ``bits`` in all, held in ``key_bytes``, sorted in
+    ``passes`` 8-bit digits."""
+
+    sbits: int
+    vbits: int
+    bw: int
+    bmin: int
+    bits: int
+    key_bytes: int
+    passes: int
+
+    @property
+    def launches(self) -> int:
+        """Device launches of one :func:`anchors` call: search, scan,
+        expansion, and one a sort pass."""
+        return 3 + self.passes
+
+
+def sort_layout(tables: AnchorTables, B: int, L: int, band_bits: int) -> SortLayout:
+    """The compact key of a batch of B rows of L positions: qid < B,
+    seq < n_seq, and the diagonal in [-(L - 1), rpos_max + L - 1], so the
+    band in [bmin, bmax]."""
+    qbits, sbits = (B - 1).bit_length(), (tables.n_seq - 1).bit_length()
+    bmin = (DIAG_OFF - (L - 1)) >> band_bits
+    bmax = (DIAG_OFF + tables.rpos_max + L - 1) >> band_bits
+    if bmax < 1 << 24:
+        bw = (bmax - bmin).bit_length()
+        vbits = bw + 1
+    else:
+        bw, vbits = -1, (bmax + (1 << 24) - bmin).bit_length()
+    bits = qbits + sbits + vbits
+    return SortLayout(sbits, vbits, bw, bmin, bits, 4 if bits <= 32 else 8,
+                      -(-bits // _RADIX_BITS))
+
+
 def _check_key_layout(B: int, L: int) -> None:
     """The packed keys hold a row in 6 bits (k1 = qid << 26 | seq) and a
     position in 25 (qid << 26 | pos << 1 | strand): raise for a batch that
@@ -163,15 +234,51 @@ def _check_key_layout(B: int, L: int) -> None:
                          f"1 <= L <= 2^25 positions, got B={B}, L={L}")
 
 
+def bucket_lower_bound(hash_: torch.Tensor, uniq: torch.Tensor, bucket: torch.Tensor,
+                       shift: int):
+    """The kernel's search, step by step: each hash's bucket t (its top bits,
+    ``hash >> shift``, at most 2^bits), and its lower bound lo (unsigned)
+    within ``[bucket[t], bucket[t + 1])``, which is its lower bound in all
+    of ``uniq``; with the entries each step reads (one tensor a step, of
+    the hashes still searching). Returns (t, lo, probes)."""
+    U, top_max = uniq.shape[0], bucket.shape[0] - 2
+    top = _lsr(hash_, shift) if shift else hash_
+    t = torch.where(top < 0, top_max, top.clamp(max=top_max))
+    lo, hi = bucket[t].to(torch.int64), bucket[t + 1].to(torch.int64)
+    q, ukey, probes = hash_ ^ SIGN, uniq ^ SIGN, []
+    while True:
+        active = lo < hi
+        if not bool(active.any()):
+            return t, lo, probes
+        mid = (lo + hi) >> 1
+        probes.append(mid[active])
+        right = active & (ukey[mid.clamp(max=U - 1)] < q)
+        lo = torch.where(right, mid + 1, lo)
+        hi = torch.where(active & ~right, mid, hi)
+
+
+def bucket_search_torch(hash_: torch.Tensor, uniq: torch.Tensor, roff: torch.Tensor,
+                        bucket: torch.Tensor, shift: int):
+    """Plain twin of the kernel's search (:func:`bucket_lower_bound`), with
+    (left, occ) as the JAX package's ``_search_occ``: ``left = roff[lo,
+    0]`` (lo clipped to U - 1), ``occ`` the run length where ``uniq[lo]``
+    is the hash, else 0."""
+    t, lo, _ = bucket_lower_bound(hash_, uniq, bucket, shift)
+    r = lo.clamp(0, uniq.shape[0] - 1)
+    found = (lo < bucket[t + 1]) & (uniq[r] == hash_)
+    left = roff[r, 0]
+    return left, torch.where(found, roff[r, 1] - left, 0)
+
+
 def anchors_torch(
     hash_: torch.Tensor, pos: torch.Tensor, strand: torch.Tensor, rows: torch.Tensor,
     n_kept: torch.Tensor, uniq: torch.Tensor, roff: torch.Tensor, ps: torch.Tensor,
     max_occ: int, band_bits: int, acap: int, B: int, L: int,
 ):
-    """Plain version of :func:`anchors`, formulated as the JAX package's
-    default collect: one lower-bound search, the occurrence filter, the
-    slot fills of :mod:`hymet_tpu_torch.ops.compaction`, one payload gather
-    per anchor."""
+    """The anchors of :func:`anchors` in emission order, unsorted,
+    formulated as the JAX package's default collect: one lower-bound
+    search, the occurrence filter, the slot fills of
+    :mod:`hymet_tpu_torch.ops.compaction`, one payload gather per anchor."""
     _check_key_layout(B, L)
     dev = hash_.device
     cap = hash_.shape[0]
@@ -208,60 +315,93 @@ def anchors_torch(
     )
 
 
+def sorted_anchors_torch(
+    hash_: torch.Tensor, pos: torch.Tensor, strand: torch.Tensor, rows: torch.Tensor,
+    n_kept: torch.Tensor, tables: AnchorTables, max_occ: int, band_bits: int, acap: int,
+    B: int, L: int,
+):
+    """Plain version of :func:`anchors`: :func:`anchors_torch`, then
+    :func:`sort_anchors`."""
+    key, qpos, rpos, n_anchors = anchors_torch(
+        hash_, pos, strand, rows, n_kept, tables.uniq, tables.roff, tables.ps, max_occ,
+        band_bits, acap, B, L)
+    return (*sort_anchors(key, qpos, rpos), n_anchors)
+
+
 def anchors(
     hash_: torch.Tensor, pos: torch.Tensor, strand: torch.Tensor, rows: torch.Tensor,
-    n_kept: torch.Tensor, uniq: torch.Tensor, roff: torch.Tensor, ps: torch.Tensor,
-    max_occ: int, band_bits: int, acap: int, B: int, L: int,
+    n_kept: torch.Tensor, tables: AnchorTables, max_occ: int, band_bits: int, acap: int,
+    B: int, L: int,
 ):
-    """Anchors of a batch's kept minimizers (:func:`minimizers`' outputs
-    for a batch of B <= 64 rows of L <= 2^25 positions; raises for a larger
-    batch, whose packed keys would wrap) against an index's search tables
-    (:func:`hymet_tpu_torch.models.aligner.build_search_tables`: sorted
-    unique hashes ``uniq`` int64 [U], run offsets ``roff`` int32 [U, 2],
-    payload ``ps`` int32 [M, 2] = (pos, seq << 1 | strand)).
+    """Sorted anchors of a batch's kept minimizers (:func:`minimizers`'
+    outputs for a batch of B <= 64 rows of L <= 2^25 positions: rows < B,
+    pos < L; raises for a larger batch, whose packed keys would wrap)
+    against an index's :class:`AnchorTables`.
 
     Returns (key int64, qpos int32, rpos int32), each [acap], and
     n_anchors (int64 [1], > acap on overflow): every occurrence of each
-    minimizer whose hash occurs 1..max_occ times, in minimizer order, with
-    its sort key ``((qid << 26 | seq) << 32 | rel << 24 | band) ^ (1 << 63)``;
-    past the last anchor the key ``2^63 - 1`` and zeros.
+    minimizer whose hash occurs 1..max_occ times, the first acap of them in
+    minimizer order, with its sort key
+    ``((qid << 26 | seq) << 32 | rel << 24 | band) ^ (1 << 63)``, sorted by
+    key, ties in minimizer order; past the last anchor the key ``2^63 - 1``
+    and zeros.
 
     A CUDA input goes to the hand-written kernel (counted in
-    ``anchors.launches``); a CPU input to :func:`anchors_torch`."""
+    ``anchors.launches``; :attr:`SortLayout.launches` device launches, no
+    host sync); a CPU input to :func:`sorted_anchors_torch`."""
     _check_key_layout(B, L)
-    args = (hash_, pos, strand, rows, n_kept, uniq, roff, ps)
-    if _check_device("anchors", *args) == "cpu":
-        return anchors_torch(*args, max_occ, band_bits, acap, B, L)
+    args = (hash_, pos, strand, rows, n_kept)
+    if _check_device("anchors", *args, tables.uniq, tables.roff, tables.ps, tables.bucket) == "cpu":
+        return sorted_anchors_torch(*args, tables, max_occ, band_bits, acap, B, L)
+    uniq, roff, ps, bucket = tables.uniq, tables.roff, tables.ps, tables.bucket
     _check("anchors", hash=(hash_, torch.int64, 1), pos=(pos, torch.int32, 1),
            strand=(strand, torch.uint8, 1), rows=(rows, torch.int32, 1),
            n_kept=(n_kept, torch.int64, 1), uniq=(uniq, torch.int64, 1),
-           roff=(roff, torch.int32, 2), ps=(ps, torch.int32, 2))
+           roff=(roff, torch.int32, 2), ps=(ps, torch.int32, 2), bucket=(bucket, torch.int32, 1))
     cap, U = hash_.shape[0], uniq.shape[0]
     if not (pos.shape[0] == strand.shape[0] == rows.shape[0] == cap and n_kept.shape[0] == 1):
         raise ValueError("anchors: the minimizer arrays differ in length")
     if roff.shape != (U, 2) or ps.dim() != 2 or ps.shape[1] != 2 or ps.shape[0] < 1:
         raise ValueError(f"anchors: need roff [U, 2] and ps [M >= 1, 2], got "
                          f"{tuple(roff.shape)}, {tuple(ps.shape)}")
+    n_buckets = bucket.shape[0] - 2
+    if not (n_buckets >= 1 and 0 <= tables.shift <= 63 and tables.n_seq <= 1 << SEQ_BITS):
+        raise ValueError(f"anchors: need a bucket table of 2^bits + 2 entries, 0 <= shift "
+                         f"<= 63 and n_seq <= 2^{SEQ_BITS}, got {bucket.shape[0]}, "
+                         f"{tables.shift}, {tables.n_seq}")
     if not (1 <= cap < 2**31 and 1 <= U < 2**31 and 1 <= acap < 2**31):
         raise ValueError(f"anchors: need 1 <= cap, U, acap < 2^31, got {cap}, {U}, {acap}")
     if not 1 <= band_bits <= 24 or max_occ < 1:
         raise ValueError(f"anchors: need 1 <= band_bits <= 24 and max_occ >= 1, got "
                          f"{band_bits}, {max_occ}")
+    if DIAG_OFF + tables.rpos_max + L > 2**31:
+        raise ValueError(f"anchors: the diagonal of a reference position {tables.rpos_max} "
+                         f"and a row of {L} wraps 32 bits")
+    lay = sort_layout(tables, B, L, band_bits)
     dev = hash_.device
     nb = _ceil(cap, _ANC_THREADS)
-    occk = torch.empty(cap, dtype=torch.int32, device=dev)
-    left = torch.empty(cap, dtype=torch.int32, device=dev)
-    block_sums = torch.empty(nb, dtype=torch.int32, device=dev)
-    offsets = torch.empty(nb, dtype=torch.int64, device=dev)
-    n_anchors = torch.empty(1, dtype=torch.int64, device=dev)
-    key = torch.empty(acap, dtype=torch.int64, device=dev)
-    qpos = torch.empty(acap, dtype=torch.int32, device=dev)
-    rpos = torch.empty(acap, dtype=torch.int32, device=dev)
+    tiles = _ceil(acap, _SORT_TILE[lay.key_bytes])
+    kdt = torch.int32 if lay.key_bytes == 4 else torch.int64
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    occk, left, block_sums, offsets = empty(cap), empty(cap), empty(nb), empty(nb, dtype=torch.int64)
+    key_u, qpos_u, rpos_u = empty(acap, dtype=torch.int64), empty(acap), empty(acap)
+    ck, kbuf, vbuf = empty(acap, dtype=kdt), empty(acap, dtype=kdt), empty(2, acap)
+    published = empty(lay.passes, tiles, 1 << _RADIX_BITS)
+    totals, tile_counter = empty(lay.passes, 1 << _RADIX_BITS), empty(lay.passes)
+    n_anchors = empty(1, dtype=torch.int64)
+    key, qpos, rpos = empty(acap, dtype=torch.int64), empty(acap), empty(acap)
     _launch("anchors", dev, hash_.data_ptr(), pos.data_ptr(), strand.data_ptr(),
-            rows.data_ptr(), n_kept.data_ptr(), cap, uniq.data_ptr(), U, roff.data_ptr(),
-            ps.data_ptr(), max_occ, band_bits, nb, occk.data_ptr(), left.data_ptr(),
-            block_sums.data_ptr(), offsets.data_ptr(), n_anchors.data_ptr(), acap,
-            key.data_ptr(), qpos.data_ptr(), rpos.data_ptr())
+            rows.data_ptr(), n_kept.data_ptr(), cap, uniq.data_ptr(), bucket.data_ptr(),
+            n_buckets, tables.shift, roff.data_ptr(), ps.data_ptr(), max_occ, band_bits,
+            lay.sbits, lay.vbits, lay.bw, lay.bmin, lay.key_bytes, lay.passes, nb, tiles,
+            occk.data_ptr(), left.data_ptr(), block_sums.data_ptr(), offsets.data_ptr(),
+            n_anchors.data_ptr(), acap, key_u.data_ptr(), qpos_u.data_ptr(), rpos_u.data_ptr(),
+            ck.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(), published.data_ptr(),
+            totals.data_ptr(), tile_counter.data_ptr(), key.data_ptr(), qpos.data_ptr(),
+            rpos.data_ptr())
     anchors.launches += 1
     return key, qpos, rpos, n_anchors
 
@@ -325,7 +465,7 @@ def chains(
     skey: torch.Tensor, s_p: torch.Tensor, s_r: torch.Tensor, k: int, min_cnt: int,
     min_mlen: int, ccap: int,
 ):
-    """Chains of sorted anchors (:func:`sort_anchors`' outputs): anchor
+    """Chains of sorted anchors (:func:`anchors`' outputs): anchor
     i + 1 continues anchor i's chain when qid, seq and rel are equal and
     its band is at most one above. Returns the good chains' rows
     (qid, seq, rel, cnt, minq, maxq, minr, maxr, score) as int32
@@ -371,4 +511,4 @@ class AlignOps(NamedTuple):
 
 
 KERNELS = AlignOps(minimizers, anchors, chains)
-PLAIN = AlignOps(minimizers_torch, anchors_torch, chains_torch)
+PLAIN = AlignOps(minimizers_torch, sorted_anchors_torch, chains_torch)

@@ -66,8 +66,8 @@ class KernelLibrary:
             (lib.minimizers_launch,
              [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _LL, _P, _P, _P, _P, _P]),
             (lib.anchors_launch,
-             [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _P,
-              _P, _P]),
+             [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+              _I, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
             (lib.chains_launch, [_P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _P]),
         ):
             fn.argtypes = argtypes

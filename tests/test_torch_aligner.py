@@ -16,7 +16,8 @@ from hymet_tpu.pipeline.staged import StagedContigs as JStaged
 from hymet_tpu_torch.io.fasta import pack_code_batch
 from hymet_tpu_torch.io.minimizer_index import MinimizerIndex as TIndex
 from hymet_tpu_torch.models import aligner as tal
-from hymet_tpu_torch.ops.align_kernels import SIGN, anchors, minimizers, sort_anchors
+from hymet_tpu_torch.ops import align_kernels as ak
+from hymet_tpu_torch.ops.align_kernels import SIGN, anchors
 from hymet_tpu_torch.pipeline.staged import StagedContigs as TStaged
 
 torch.set_num_threads(1)
@@ -107,41 +108,43 @@ def test_records_match_jax(world):
 
 def test_sorted_anchors_and_chain_rows_match_jax(world):
     """One batch through both device paths: the sorted anchors (valid
-    part), the counts and the [n, 9] chain rows, element for element."""
+    part) from ``anchors`` itself, the counts and the [n, 9] chain rows,
+    element for element, through the aligner's ``KERNELS`` (their plain
+    versions on the CPU) and ``PLAIN``."""
     _genomes, names, seqs, jidx, _ = world
     jaln = jal.MinimizerAligner(jidx, jal.AlignerConfig(batch_pad=PAD))
-    taln = _port(world)
     groups, fixed = tal.plan_query_groups([len(s) for s in seqs], PAD, 38)
     assert len(groups) == 1
     batch = tal.build_group_batch(seqs, groups[0], PAD, 38, fixed)
     packed, mask, L = pack_code_batch(batch)
     B = batch.shape[0]
-    NW, cap = taln._minimizer_cap(B, L)
-    acap, ccap = taln._device_caps(B, NW, cap)
-    assert (NW, cap) == jaln._minimizer_cap(B, L) and (acap, ccap) == jaln._device_caps(B, NW, cap)
-
     jp, jm = jnp.asarray(packed), jnp.asarray(mask)
+    tp, tm = torch.from_numpy(packed), torch.from_numpy(mask)
+    NW, cap = jaln._minimizer_cap(B, L)
+    acap, ccap = jaln._device_caps(B, NW, cap)
     s_k1, s_k2, s_p, s_r, j_anchors, j_kept = (np.asarray(x) for x in jal._collect_sorted_fused_packed(
         jaln._idx_hl, jaln._idx_roff2, jaln._idx_ps, jp, jm, L, 19, 19, 16, 11, cap, acap,
         jaln._bkt2, jaln._bkt_bits, jaln._bkt_steps, bsearch=True, slot_fill=True))
-    tp, tm = torch.from_numpy(packed), torch.from_numpy(mask)
-    mz = minimizers(tp, tm, L, 19, 19, cap)
-    key, qpos, rpos, n_anchors = anchors(*mz, taln._uniq, taln._roff2, taln._ps, 16, 11, acap, B, L)
-    skey, sp, sr = sort_anchors(key, qpos, rpos)
-    n = int(n_anchors)
-    assert (int(mz[4]), n) == (int(j_kept), int(j_anchors)) and 0 < n <= acap
-    raw = (skey ^ SIGN).numpy().view(np.uint64)
-    np.testing.assert_array_equal((raw >> np.uint64(32)).astype(np.uint32), s_k1)
-    np.testing.assert_array_equal((raw & np.uint64(0xFFFFFFFF)).astype(np.uint32), s_k2)
-    np.testing.assert_array_equal(sp.numpy()[:n].astype(np.uint32), s_p[:n])
-    np.testing.assert_array_equal(sr.numpy()[:n].astype(np.uint32), s_r[:n])
-
     _, _, _, _, _, (chains, n_chains, _, _) = jaln._dispatch_batch((jp, jm, B, L))
-    rows, counts = taln._dispatch_batch((tp, tm, B, L))[4]
     nc = int(n_chains)
-    assert counts.tolist() == [nc, int(j_kept), int(j_anchors)] and nc > 5
-    np.testing.assert_array_equal(rows.numpy()[:nc].astype(np.int64), np.asarray(chains)[:nc].astype(np.int64))
-    assert not rows[nc:].any()
+    for ops in (ak.KERNELS, ak.PLAIN):
+        taln = _port(world, ops=ops)
+        assert (NW, cap) == taln._minimizer_cap(B, L) and (acap, ccap) == taln._device_caps(B, NW, cap)
+        mz = ops.minimizers(tp, tm, L, 19, 19, cap)
+        skey, sp, sr, n_anchors = ops.anchors(*mz, taln._tables, 16, 11, acap, B, L)
+        n = int(n_anchors)
+        assert (int(mz[4]), n) == (int(j_kept), int(j_anchors)) and 0 < n <= acap
+        raw = (skey ^ SIGN).numpy().view(np.uint64)
+        np.testing.assert_array_equal((raw >> np.uint64(32)).astype(np.uint32), s_k1)
+        np.testing.assert_array_equal((raw & np.uint64(0xFFFFFFFF)).astype(np.uint32), s_k2)
+        np.testing.assert_array_equal(sp.numpy()[:n].astype(np.uint32), s_p[:n])
+        np.testing.assert_array_equal(sr.numpy()[:n].astype(np.uint32), s_r[:n])
+
+        rows, counts = taln._dispatch_batch((tp, tm, B, L))[4]
+        assert counts.tolist() == [nc, int(j_kept), int(j_anchors)] and nc > 5
+        np.testing.assert_array_equal(rows.numpy()[:nc].astype(np.int64),
+                                      np.asarray(chains)[:nc].astype(np.int64))
+        assert not rows[nc:].any()
 
 
 def _small_caps(cls, monkeypatch, caps):
@@ -227,14 +230,13 @@ def test_anchors_refuse_batches_past_the_key_layout(B, L, plain):
     """The packed keys hold a row in 6 bits and a position in 25: the
     wrapper and its plain version raise for a batch that would wrap them,
     rather than return wrong sort keys."""
-    from hymet_tpu_torch.ops.align_kernels import anchors_torch
-
-    fn = anchors_torch if plain else anchors
+    fn = ak.sorted_anchors_torch if plain else anchors
     mz = (torch.zeros(4, dtype=torch.int64), torch.zeros(4, dtype=torch.int32),
           torch.zeros(4, dtype=torch.uint8), torch.zeros(4, dtype=torch.int32),
           torch.zeros(1, dtype=torch.int64))
-    tables = (torch.zeros(1, dtype=torch.int64), torch.zeros((1, 2), dtype=torch.int32),
-              torch.zeros((1, 2), dtype=torch.int32))
+    uniq = np.zeros(1, dtype=np.int64)
+    tables = ak.anchor_tables(uniq, np.zeros((1, 2), np.int32), np.zeros((1, 2), np.int32),
+                              *tal.build_bucket_table(uniq, 19), 1, "cpu")
     with pytest.raises(ValueError, match="packed key layout"):
-        fn(*mz, *tables, 16, 11, 8, B, L)
-    fn(*mz, *tables, 16, 11, 8, 64, 1 << 25)  # the largest batch the layout holds
+        fn(*mz, tables, 16, 11, 8, B, L)
+    fn(*mz, tables, 16, 11, 8, 64, 1 << 25)  # the largest batch the layout holds

@@ -254,8 +254,8 @@ def repeat_world():
 @pytest.mark.parametrize("acap", [1 << 17, 3000])
 @pytest.mark.parametrize("ccap", [1024, 7])
 def test_anchor_and_chain_kernels_match_plain(repeat_world, cap, acap, ccap):
-    """Anchors (occurrences up to max_occ and above, a cap that cuts the
-    minimizers, an acap that cuts the anchors) and chains (one of about
+    """Sorted anchors (occurrences up to max_occ and above, a cap that cuts
+    the minimizers, an acap that cuts the anchors) and chains (one of about
     4000 anchors, a ccap that cuts them) bit for bit."""
     _need_card()
     from hymet_tpu_torch.models.aligner import MinimizerAligner
@@ -264,19 +264,47 @@ def test_anchor_and_chain_kernels_match_plain(repeat_world, cap, acap, ccap):
     index, packed, mask, L = repeat_world
     aln = MinimizerAligner(index, device="cuda")
     mz = ak.minimizers_torch(packed.cuda(), mask.cuda(), L, 19, 19, cap)
-    tables = (aln._uniq, aln._roff2, aln._ps)
-    got = ak.anchors(*mz, *tables, 16, 11, acap, packed.shape[0], L)
-    want = ak.anchors_torch(*mz, *tables, 16, 11, acap, packed.shape[0], L)
+    got = ak.anchors(*mz, aln._tables, 16, 11, acap, packed.shape[0], L)
+    want = ak.sorted_anchors_torch(*mz, aln._tables, 16, 11, acap, packed.shape[0], L)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    sorted_ = ak.sort_anchors(*want[:3])
+    sorted_ = want[:3]
     got = ak.chains(*sorted_, 19, 3, 40, ccap)
     want = ak.chains_torch(*sorted_, 19, 3, 40, ccap)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert int(want[1]) > 0
+
+
+ANCHOR_SETS = {name: rest for name, *rest in chip_smoke.anchor_edge_sets()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(ANCHOR_SETS))
+def test_anchors_kernel_matches_plain_on_edge_sets(name):
+    """The kernel's sorted anchors and n_anchors bit for bit, one wrapper
+    call a call, against ``sorted_anchors_torch`` on the anchor edge sets
+    (chip_smoke.anchor_edge_sets: runs of equal keys over several sort
+    tiles, rows without anchors, none at all, overflow, a 43-bit compact
+    key in 64 bits, the band at its extremes), at the set's acap and at a
+    seventh of it, with the allocator's free blocks dirtied first so that a
+    slot left unwritten shows."""
+    _need_card()
+    from hymet_tpu_torch.ops import align_kernels as ak
+
+    genomes, codes, band_bits, acap = ANCHOR_SETS[name]
+    _index, tables, mz, B, L = chip_smoke.anchor_inputs(genomes, codes, device="cuda")
+    for cut in (acap, max(1, acap // 7)):
+        _dirty(4 * cut, 4 * cut, mz[0].numel())
+        before = ak.anchors.launches
+        got = ak.anchors(*mz, tables, chip_smoke.MAX_OCC, band_bits, cut, B, L)
+        want = ak.sorted_anchors_torch(*mz, tables, chip_smoke.MAX_OCC, band_bits, cut, B, L)
+        torch.cuda.synchronize()
+        assert ak.anchors.launches == before + 1
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 CHAIN_SETS = {name: rest for name, *rest in chip_smoke.chain_edge_sets(longest=True)}
@@ -322,7 +350,7 @@ def test_anchors_kernel_refuses_batches_past_the_key_layout(repeat_world, B, L):
     mz = ak.minimizers_torch(packed.cuda(), mask.cuda(), L0, 19, 19, 8192)
     before = ak.anchors.launches
     with pytest.raises(ValueError, match="packed key layout"):
-        ak.anchors(*mz, aln._uniq, aln._roff2, aln._ps, 16, 11, 1 << 17, B, L)
+        ak.anchors(*mz, aln._tables, 16, 11, 1 << 17, B, L)
     assert ak.anchors.launches == before
 
 

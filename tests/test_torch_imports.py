@@ -188,8 +188,10 @@ def test_chip_smoke_align_bounds(tmp_path, monkeypatch):
     """The align kernels' bounds in chip_smoke count only what the function
     needs: minimizers its operations on windows with a valid k-mer (48 ALU
     and 12 multiply-add instructions a window) and its bytes for the kept
-    minimizers, not the [cap] slots; anchors the search table's touched
-    entries once, the anchors and the sentinel keys; chains the anchors
+    minimizers, not the [cap] slots; anchors the loads of its
+    bucket-confined search and the bucket and unique-hash entries it
+    touches, once each, the anchors and 16 bytes an empty slot (the
+    sentinel key, zero qpos and rpos); chains the anchors
     and the good chains' rows, not the padding; and the reference FASTA
     written in selected_genomes.txt order."""
     import gzip
@@ -202,13 +204,22 @@ def test_chip_smoke_align_bounds(tmp_path, monkeypatch):
     assert dense == (pytest.approx(10_000_000 * 0.75 / sms / clock * 1e3), "operations")
     assert chip_smoke.minimizer_bound_ms([(10**10, 10, 5)], 19, sms, clock) == (
         pytest.approx((10**10 + 17 * 5) / 3.35e12 * 1e3), "bytes")
-    assert [chip_smoke.search_steps(u) for u in (1, 2, 3, 8_000_000)] == [1, 2, 2, 23]
-    assert chip_smoke.search_entries(8_000_000, 1) == 23
-    assert chip_smoke.search_entries(1000, 4) == 1 + 2 + 4 * 8
-    assert chip_smoke.search_entries(7, 1000) == 7
-    ms, by = chip_smoke.anchor_bound_ms([(500, 800, 1024)], 7, sms, clock)
-    nbytes = 500 * (17 + 8) + 8 * 7 + 800 * 24 + 8 * 224
+    # 2k = 8-bit hashes 3, 7, 8 | 250 in 8 buckets of 32: 7 takes two steps
+    # and lands on entry 1, 250 one step in a bucket of one, 100 an empty
+    # bucket
+    from hymet_tpu_torch.models.aligner import build_bucket_table
+    from hymet_tpu_torch.ops.align_kernels import anchor_tables
+
+    uniq = np.array([3, 7, 8, 250], np.int64)
+    tables = anchor_tables(uniq, np.zeros((4, 2), np.int32), np.zeros((1, 2), np.int32),
+                           *build_bucket_table(uniq, 4), 1, "cpu")
+    assert tables.shift == 5 and tables.bucket.tolist() == [0, 3, 3, 3, 3, 3, 3, 3, 4, 4]
+    assert chip_smoke.search_stats(torch.tensor([7, 250, 100]), tables) == (2 + 1 + 1 + 1, 6, 3)
+    ms, by = chip_smoke.anchor_bound_ms([(500, 1200, 600, 700, 800, 1024)], sms, clock)
+    nbytes = 500 * (17 + 8) + 4 * 600 + 8 * 700 + 800 * 24 + 16 * 224
     assert (ms, by) == (pytest.approx(nbytes / 3.35e12 * 1e3), "bytes")
+    over, _ = chip_smoke.anchor_bound_ms([(10, 20, 4, 4, 5000, 1024)], sms, clock)
+    assert over == pytest.approx((10 * 25 + 16 + 32 + 24 * 1024) / 3.35e12 * 1e3)
     ms, by = chip_smoke.chain_bound_ms([(4096, 10), (4096, 10)], sms, clock)
     assert (ms, by) == (pytest.approx(2 * (16 * 4096 + 36 * 10) / 3.35e12 * 1e3), "bytes")
     for acc, body in (("A_1.1", b">a1\nACGT\nAC"), ("B_2.1", b">b2\nGGGG\n")):

@@ -76,6 +76,25 @@ Phases, each printed as one JSON line with its seconds:
              index build's batches with their row lengths (the
              ``index_pass``: held bit for bit, timed, bounded).
 
+8. run     — the whole run as a user calls it: ``ClassificationRun.execute``
+             on the gut sample (sketch1-3, the in-repo genomes, acc2taxid.tsv
+             and taxonomy, RunConfig defaults; cache and outputs in the
+             temporary directory), with every launch count set to 0 just
+             before and read just after: each stage's seconds, each kernel's
+             launches (all but ``kmer_hashes`` must be launched, ``lca``
+             included), the first-hit fallback must not have run, and
+             ``classified_sequences.tsv`` must be byte-identical to a CPU
+             re-classification of the run's own ``resultados.paf``; the
+             classified rows, the LCA's bucket batches, and one profiled
+             classification (device busy and idle share).
+9. lca     — ``weighted_lca``'s kernel against ``weighted_lca_torch``, bit
+             for bit (names, depths, float64 confidence bits), on
+             :func:`lca_edge_sets` at H = 8 .. 2048 (two seeds: ties on
+             purpose, -1 rows, all-zero rank rows, no name at rank 0) and on
+             the gut classification's batches; its time over those batches,
+             its plain version's, its bound (:func:`lca_bound_ms`) and its
+             share of the classify stage.
+
 Then the card's name and power limit as nvidia-smi prints them, one JSON
 line with the kernels' numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -103,17 +122,26 @@ import torch
 
 from hymet_tpu_torch.io.fasta import encode_seq, iter_fasta, pack_code_batch, read_fasta
 from hymet_tpu_torch.io.minimizer_index import MinimizerIndex, _row_batches
+from hymet_tpu_torch.io.paf import parse_paf_for_classification
 from hymet_tpu_torch.io.sketchdb import SketchDB, load_sketch_db
 from hymet_tpu_torch.models.aligner import AlignerConfig, MinimizerAligner
-from hymet_tpu_torch.ops import align_kernels, hash_kernels
+from hymet_tpu_torch.models.weighted_lca import (
+    classify_paf,
+    lca_inputs,
+    load_hierarchy_vectors,
+    taxid_weights,
+)
+from hymet_tpu_torch.ops import align_kernels, hash_kernels, lca
 from hymet_tpu_torch.ops.hash_kernels import count_hashes, screen_count_torch
 from hymet_tpu_torch.ops.hashing import SIGN, kmer_hashes_torch, unpack_code_batch
 from hymet_tpu_torch.ops.minimizer import extract_minimizers_numpy, extract_minimizers_torch
 from hymet_tpu_torch.ops.sketch import ScreenEngine, flat_index_device
 from hymet_tpu_torch.pipeline.align_stage import run_align_stage
 from hymet_tpu_torch.pipeline.candidates import limit_candidates_files
+from hymet_tpu_torch.pipeline.run import ClassificationRun
 from hymet_tpu_torch.pipeline.screen_stage import run_screen_stage
 from hymet_tpu_torch.pipeline.staged import StagedContigs
+from hymet_tpu_torch.taxonomy.idmap import IdentifierMap
 from hymet_tpu_torch.utils.config import RunConfig
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -130,6 +158,9 @@ DB_LABELS = ["sketch1", "sketch2", "sketch3"]
 # 64-bit integer unit, so 64-bit work is counted in 32-bit instructions.
 PEAK_BYTES_S = 3.35e12
 ALU_PER_CLK, MAD_PER_CLK, ISSUE_PER_CLK = 64, 64, 128
+# float64 add, multiply and multiply-add results per SM and clock (the same
+# table, compute capability 9.0)
+FP64_PER_CLK = 64
 
 # The screen's chunk shape (RunConfig.screen_chunk_bp rows, 8 at a time).
 MAIN_B, MAIN_L, MAIN_K = 8, 1 << 20, 21
@@ -682,8 +713,15 @@ def chain_bound_ms(batches, sms: int, clock_hz: float) -> tuple:
 
 
 def zero_launches() -> None:
-    for fn in (hash_kernels.screen_count, hash_kernels.kmer_hashes, *align_kernels.KERNELS):
+    for fn in (hash_kernels.screen_count, hash_kernels.kmer_hashes, *align_kernels.KERNELS,
+               lca.weighted_lca):
         fn.launches = 0
+
+
+def all_launches() -> dict:
+    return {"screen_count": hash_kernels.screen_count.launches,
+            "kmer_hash": hash_kernels.kmer_hashes.launches, **align_launches(),
+            "lca": lca.weighted_lca.launches}
 
 
 def align_launches() -> dict:
@@ -868,11 +906,16 @@ def anchor_activities(prof: dict, aligner: MinimizerAligner, staged) -> dict:
 
 
 def check_equal(name: str, got, want) -> float:
-    """Raise unless every output equals the plain version's bit for bit;
-    returns the largest absolute difference (0.0)."""
+    """Raise unless every output equals the plain version's bit for bit
+    (float64 outputs by their bit patterns); returns the largest absolute
+    difference (0.0)."""
     torch.cuda.synchronize()
+
+    def bits(x):
+        return x.view(torch.int64) if x.dtype == torch.float64 else x
+
     for i, (a, b) in enumerate(zip(got, want)):
-        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(bits(a), bits(b)):
             raise AssertionError(f"{name}: output {i} differs from the plain version")
     return max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
                for a, b in zip(got, want))
@@ -1399,6 +1442,203 @@ def phase_align_kernels(seed: int, cfg: RunConfig, index: MinimizerIndex, staged
     return stats
 
 
+LCA_BUCKETS = (8, 32, 128, 512, 2048)  # hymet_tpu_torch.ops.lca.DEFAULT_BUCKETS
+
+
+def lca_edge_sets(seed: int = 0, big_q: int = 4) -> list:
+    """Hit batches for ``weighted_lca`` at every bucket size H, as (name,
+    rows int32 [Q, H], weights float64 [Q, H], rank table int32 [T, 8]).
+    The table has few names at the top ranks (many hits share a name, so
+    the order of the adds shows in the bits), an all-zero row (a taxid
+    missing from the hierarchy), a row with no name at rank 0 but names
+    below, a row with a gap at rank 3, rows 8 deep, and pairs of rows that
+    differ first at rank 0 and at rank 3. Each H has 16 queries (`big_q`
+    at H = 2048): random hit counts padded with -1 and weights spread over
+    four decades, the first query full; then, as many as fit after one
+    random query: ties on purpose at rank 0 and at rank 3 (equal sums under
+    two names, from dyadic weights in different numbers of hits), a
+    padding query (all -1), a tie whose later-seen name's hit comes first,
+    all hits on the all-zero row, all on the row without a rank-0 name,
+    named hits of weight 0 (a zero total), one hit, a stop at rank 3, and
+    one taxid in every slot."""
+    rng = np.random.default_rng(seed)
+    T = 64
+    table = np.zeros((T, 8), np.int32)
+    for t in range(T - 5):
+        for r in range(int(rng.integers(1, 9))):
+            table[t, r] = 1 + 100 * r + int(rng.integers(0, 2 + 3 * r))
+    table[1, 0], table[1, 1:] = 0, table[5, 1:] | 1  # no name at rank 0, names below
+    table[2, 3] = 0  # a gap at rank 3
+    table[3] = table[4] = 1 + 100 * np.arange(8)  # 8 deep
+    zero, a, b, c, d = T - 5, T - 4, T - 3, T - 2, T - 1  # row `zero` stays all zero
+    table[a], table[b] = 11 + 100 * np.arange(8), 12 + 100 * np.arange(8)  # differ at rank 0
+    table[c] = table[d] = 13 + 100 * np.arange(8)
+    table[d, 3:] += 50  # c and d differ from rank 3 on
+    sets = []
+    for H in LCA_BUCKETS:
+        Q = 16 if H < 2048 else big_q
+        rows = rng.integers(0, T, (Q, H)).astype(np.int32)
+        weights = rng.random((Q, H)) * 10.0 ** rng.uniform(-2, 2, (Q, H))
+        n = rng.integers(1, H + 1, Q)
+        n[0] = H  # a full row
+        special = [  # the first ones go into the small batches too
+            ([a, b, a, b], [1.5, 3.0, 1.5, 0.0]),  # tie at rank 0
+            ([c, d, 3, c, d], [2.0, 0.5, 0.125, 0.0, 1.5]),  # tie at rank 3
+            (np.full(H, -1), weights[0]),  # a padding query
+            ([b, a, a, b, a], [0.5, 2.0, 0.75, 2.25, 0.0]),  # tie, the later name's hit first
+            (np.full(H, zero), weights[0]),  # the all-zero row
+            (np.ones(H), weights[0]),  # no name at rank 0
+            ([a, c, 3], [0.0, 0.0, 0.0]),  # named, weight 0
+            ([4], [0.7]),  # one hit
+            ([2, zero, 2], [1.0, 3.0, 2.0]),  # stops at the gap: depth 3
+            (np.full(H, 3), weights[1]),  # one taxid in every slot
+        ]
+        start = max(1, Q - len(special))
+        for i, (r_, w_) in zip(range(start, Q), special):
+            m = min(H, len(r_))
+            rows[i, :m], weights[i, :m], n[i] = np.asarray(r_)[:m], np.asarray(w_)[:m], m
+        pad = np.arange(H)[None, :] >= n[:, None]
+        rows[pad] = -1  # padding slots keep their weights: -1 ignores them
+        sets.append((f"H={H}", rows, weights, table))
+    return sets
+
+
+def lca_bound_ms(batches, rank_table: np.ndarray, sms: int, clock_hz: float) -> tuple:
+    """(least time in ms, what bounds it) for ``weighted_lca`` over bucket
+    batches given as (rows int32 [Q, H], n_chosen [Q]), with the rank table
+    of the run. A query evaluates ranks 0 .. min(n_chosen, 7): the ranks it
+    chose and the one that stopped it.
+
+    - bytes: 12 a valid hit (row and weight); 4 a rank-table entry, each
+      (row, rank) pair that some query's valid hits reach, read once; 44 a
+      query written (8 names, the depth, the confidence);
+    - operations: float64 adds, per query and rank evaluated: the per-name
+      sums need n_named - n_distinct adds and the named total n_named - 1;
+      a chosen rank adds a quotient and a product (counted 1 each)."""
+    nbytes = fp64 = 0
+    for rows, n_chosen in batches:
+        Q, _H = rows.shape
+        reached = np.minimum(n_chosen.astype(np.int64) + 1, 8)
+        entries = set()
+        for q in range(Q):
+            hits = rows[q][rows[q] >= 0]
+            if hits.size == 0:
+                continue
+            for r in range(int(reached[q])):
+                entries.update(zip(hits.tolist(), [r] * hits.size))
+                names = rank_table[hits, r]
+                named = names[names != 0]
+                if named.size:
+                    fp64 += 2 * named.size - np.unique(named).size - 1
+                fp64 += 2 * (r < n_chosen[q])
+        nbytes += 12 * int((rows >= 0).sum()) + 44 * Q
+        nbytes += 4 * len(entries)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = fp64 / FP64_PER_CLK / sms / clock_hz * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def run_config(tmp: str) -> RunConfig:
+    """The whole run on the gut sample as a user would set it up: the
+    in-repo sketch DBs, genomes, accession table and taxonomy; RunConfig
+    defaults otherwise."""
+    return RunConfig(
+        input_fasta=CONTIGS, outdir=os.path.join(tmp, "run"),
+        cache_root=os.path.join(tmp, "run_cache"), taxonomy_dir=os.path.join(WORLD, "taxonomy"),
+        sketch_dbs=[os.path.join(WORLD, f"{label}.npz") for label in DB_LABELS],
+        genome_catalog=GENOMES, seqid2taxid=os.path.join(WORLD, "acc2taxid.tsv"))
+
+
+def phase_run(tmp: str) -> dict:
+    """ClassificationRun.execute on the gut sample, on the card: each
+    stage's seconds, every kernel launched, no first-hit fallback, and a
+    classified_sequences.tsv byte-identical to a CPU re-classification of
+    the run's own resultados.paf. Returns what the LCA phase needs."""
+    t0 = time.perf_counter()
+    cfg = run_config(tmp)
+    torch.cuda.synchronize()
+    zero_launches()
+    t = time.perf_counter()
+    run = ClassificationRun(cfg, device="cuda")
+    classified = run.execute()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = all_launches()
+    missing = [k for k, n in launches.items() if n <= 0 and k != "kmer_hash"]
+    if missing:
+        raise AssertionError(f"kernels not launched by execute: {missing} ({launches})")
+    if run.fallback_ran:
+        raise AssertionError("the first-hit fallback ran: the weighted LCA did not classify")
+    (key,) = os.listdir(cfg.cache_root)
+    paf = os.path.join(cfg.outdir, "work", "resultados.paf")
+    taxonomy = os.path.join(cfg.cache_root, key, "detailed_taxonomy.tsv")
+    hierarchy = run._hierarchy_path()
+    cpu_tsv = os.path.join(tmp, "classified_cpu.tsv")
+    t = time.perf_counter()
+    classify_paf(paf, taxonomy, hierarchy, cpu_tsv, device="cpu")
+    cpu_s = time.perf_counter() - t
+    if not filecmp.cmp(classified, cpu_tsv, shallow=False):
+        raise AssertionError("classified_sequences.tsv differs from the CPU re-classification")
+    # the classification's LCA batches, as classify_paf makes them
+    qmap, counts = parse_paf_for_classification(paf)
+    tw = taxid_weights(qmap, counts, IdentifierMap.from_detailed_taxonomy(taxonomy))
+    rank_table, names, batches = lca_inputs(tw, load_hierarchy_vectors(hierarchy))
+    with open(classified, newline="") as f:
+        rows = f.read().split("\r\n")[1:-1]
+    levels = {}
+    for row in rows:
+        level = row.split("\t")[2]
+        levels[level] = levels.get(level, 0) + 1
+    prof = profile_run(lambda: classify_paf(paf, taxonomy, hierarchy, os.path.join(tmp, "again.tsv"),
+                                            device="cuda"))
+    with open(paf) as f:
+        n_records = sum(1 for _ in f)
+    cami = os.path.join(cfg.outdir, "hymet.contigs.cami.tsv")
+    emit("run", t0, execute_s=run_s, stage_s=run.timings, launches=launches, fallback_ran=False,
+         paf_records=n_records, classified_rows=len(rows), levels=levels,
+         tsv_identical_to_cpu=True, cpu_classify_s=cpu_s,
+         lca_buckets=[[int(r.shape[0]), int(r.shape[1]), int(len(q))] for q, r, _w in batches],
+         rank_table_rows=int(rank_table.shape[0]), names=len(names),
+         cami_rows=sum(1 for ln in open(cami) if not ln.startswith(("#", "@"))),
+         classify_profile=prof)
+    return {"launches": launches["lca"], "classify_s": run.timings["classify"],
+            "rank_table": rank_table, "batches": batches}
+
+
+def phase_lca(seed: int, gut: dict, sms: int, clock_hz: float) -> dict:
+    """``weighted_lca``'s kernel against ``weighted_lca_torch`` on the card,
+    bit for bit: chip_smoke's edge sets at H = 8 .. 2048 (two seeds) and
+    the gut classification's bucket batches; then the kernel's time over
+    one gut classification's batches, the plain version's and the bound."""
+    t0 = time.perf_counter()
+    cases, err = [], 0.0
+    for s in (seed, seed + 1):
+        for name, *arrays in lca_edge_sets(s, big_q=16):
+            args = [torch.from_numpy(x).cuda() for x in arrays]
+            want = lca.weighted_lca_torch(*args)
+            err = max(err, check_equal(f"lca, seed {s}, {name}", lca.weighted_lca(*args), want))
+            cases.append([s, name, *arrays[0].shape, np.bincount(want[1].cpu().numpy(), minlength=9).tolist()])
+    table = torch.from_numpy(gut["rank_table"]).cuda()
+    batches = [(torch.from_numpy(r).cuda(), torch.from_numpy(w).cuda()) for _q, r, w in gut["batches"]]
+    depths = []
+    for rows, w in batches:
+        want = lca.weighted_lca_torch(rows, w, table)
+        err = max(err, check_equal(f"lca, gut batch {tuple(rows.shape)}",
+                                   lca.weighted_lca(rows, w, table), want))
+        depths.append(want[1].cpu().numpy())
+    ms = sum(cuda_ms(lambda: lca.weighted_lca(rows, w, table)) for rows, w in batches)
+    plain_ms = sum(cuda_ms(lambda: lca.weighted_lca_torch(rows, w, table), iters=3, warmup=1)
+                   for rows, w in batches)
+    bound, by = lca_bound_ms([(r, d) for (_q, r, _w), d in zip(gut["batches"], depths)],
+                             gut["rank_table"], sms, clock_hz)
+    stats = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+             "library_ms": None, "max_abs_err": err}
+    emit("lca", t0, cases=cases, identical=True, gut_batches=[list(r.shape) for r, _w in batches],
+         launches_per_classification=len(batches), share_of_classify=ms / 1e3 / gut["classify_s"],
+         **stats)
+    return stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1428,6 +1668,8 @@ def main() -> int:
         index, staged, align_launched, combined = phase_align(tmp, cfg)
         align_stats = phase_align_kernels(args.seed, cfg, index, staged, combined, sms,
                                           clock_mhz * 1e6)
+        gut = phase_run(tmp)
+        lca_stats = phase_lca(args.seed, gut, sms, clock_mhz * 1e6)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1449,6 +1691,9 @@ def main() -> int:
               ("minimizers", "hymet_tpu/ops/minimizer.py:241"),
               ("anchors", "hymet_tpu/models/aligner.py:391, :509 (its lax.sort :696)"),
               ("chains", "hymet_tpu/models/aligner.py:709"))),
+        {"name": "lca", "route": "cuda", "source": "hymet_tpu_torch/csrc/lca.cu",
+         "replaces": "hymet_tpu/ops/lca.py:40", "launches": gut["launches"], "main_path": True,
+         **lca_stats},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

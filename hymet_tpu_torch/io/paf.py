@@ -1,5 +1,5 @@
-"""PAF (Pairwise mApping Format) records, writer and the classifier's
-tolerant reader (copy of hymet_tpu.io.paf's).
+"""PAF (Pairwise mApping Format) records, reader, writer and the
+classifier's tolerant reader (copy of hymet_tpu.io.paf).
 
 The classifier consumes only columns 1, 2, 6, 10 and 11 (qname, qlen,
 tname, nmatch, block_len); records carry all 12 columns plus tags so the
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import gzip
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Tuple
 
 
 @dataclass
@@ -58,6 +58,45 @@ def _opener(path: str):
     if path.endswith(".gz"):
         return gzip.open(path, "rt", encoding="utf-8", errors="ignore")
     return open(path, "r", encoding="utf-8", errors="ignore")
+
+
+def iter_paf(path: str) -> Iterator[PafRecord]:
+    """The records of a PAF file (``.gz`` too) with all 12 columns and
+    their ``tag:type:value`` tags; comment lines, short lines and lines
+    whose numbers do not parse are skipped."""
+    with _opener(path) as f:
+        for line in f:
+            if not line or line.startswith("#"):
+                continue
+            parts = line.rstrip("\n").split("\t")
+            if len(parts) < 12:
+                continue
+            try:
+                rec = PafRecord(
+                    qname=parts[0],
+                    qlen=int(parts[1]),
+                    qstart=int(parts[2]),
+                    qend=int(parts[3]),
+                    strand=parts[4],
+                    tname=parts[5],
+                    tlen=int(parts[6]),
+                    tstart=int(parts[7]),
+                    tend=int(parts[8]),
+                    nmatch=int(parts[9]),
+                    blocklen=int(parts[10]),
+                    mapq=int(parts[11]),
+                )
+            except ValueError:
+                continue
+            for tag in parts[12:]:
+                bits = tag.split(":", 2)
+                if len(bits) == 3:
+                    rec.tags[bits[0]] = f"{bits[1]}:{bits[2]}"
+            yield rec
+
+
+def read_paf(path: str) -> List[PafRecord]:
+    return list(iter_paf(path))
 
 
 def write_paf(path: str, records: Iterable[PafRecord]) -> None:

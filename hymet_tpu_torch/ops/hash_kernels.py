@@ -9,7 +9,8 @@ Counterpart of ``hymet_tpu/ops/pallas_kernels.py``:
   of a code batch, the direct counterpart of ``kmer_hashes_pallas``.
 
 Both build on ``csrc/kmer_core.cuh``. The align stage's kernels
-(:mod:`hymet_tpu_torch.ops.align_kernels`) live in the same library. The
+(:mod:`hymet_tpu_torch.ops.align_kernels`) and the weighted LCA
+(:mod:`hymet_tpu_torch.ops.lca`) live in the same library. The
 ``.cu`` sources are compiled at first use — never at import — one nvcc a
 source, all started together (the build runs inside chip_smoke.py's time
 limit, and side by side it takes about the time of the slowest source),
@@ -19,7 +20,8 @@ and linked into one shared library with a plain C interface, bound with
 (the header included) and flags, so an edited source builds anew.
 
 A wrapper takes its kernel's plain PyTorch version only for a tensor on
-the CPU; for a CUDA tensor it launches the kernel or raises.
+the CPU; for a CUDA tensor it launches the kernel or raises. A build or
+launch that fails raises :class:`KernelError`.
 """
 
 from __future__ import annotations
@@ -42,13 +44,18 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 SOURCES = (
     _CSRC / "kmer_core.cuh", _CSRC / "scan.cuh", _CSRC / "kmer_hash.cu", _CSRC / "screen_count.cu",
-    _CSRC / "minimizers.cu", _CSRC / "anchors.cu", _CSRC / "chains.cu",
+    _CSRC / "minimizers.cu", _CSRC / "anchors.cu", _CSRC / "chains.cu", _CSRC / "lca.cu",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 180
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, load or launch. Callers that
+    tolerate a failing stage (the first-hit fallback) let it through."""
 
 
 class KernelLibrary:
@@ -69,6 +76,7 @@ class KernelLibrary:
              [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
               _I, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
             (lib.chains_launch, [_P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _P]),
+            (lib.lca_launch, [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
         ):
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -86,7 +94,7 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    raise KernelError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
 def _build_dir() -> Path:
@@ -113,7 +121,7 @@ def _run_all(cmds, deadline: float) -> str:
                 p.wait()
     for cmd, p, out in zip(cmds, procs, outs):
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {p.returncode}): {' '.join(cmd)}\n{out}")
+            raise KernelError(f"nvcc failed (exit {p.returncode}): {' '.join(cmd)}\n{out}")
     return "".join(outs)
 
 
@@ -139,19 +147,23 @@ def _build(out_dir: Path, so: Path) -> str:
 
 def load_library() -> KernelLibrary:
     """Build (if these sources' library is not there yet) and load the
-    kernels. Raises with nvcc's output if the build fails."""
+    kernels. Raises :class:`KernelError`, with nvcc's output, if the build
+    or the load fails."""
     global _LIBRARY
     if _LIBRARY is not None:
         return _LIBRARY
     out_dir = _build_dir()
     so = out_dir / "libhymet_kernels.so"
     build_s, log = 0.0, ""
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        log = _build(out_dir, so)
-        build_s = time.perf_counter() - t0
-    _LIBRARY = KernelLibrary(ctypes.CDLL(str(so)), so, build_s, log)
+    try:
+        if not so.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            log = _build(out_dir, so)
+            build_s = time.perf_counter() - t0
+        _LIBRARY = KernelLibrary(ctypes.CDLL(str(so)), so, build_s, log)
+    except (OSError, AttributeError, subprocess.SubprocessError) as e:
+        raise KernelError(f"kernel library {so}: {e}") from e
     return _LIBRARY
 
 
@@ -160,7 +172,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
         fn = getattr(load_library().lib, f"{name}_launch")
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+        raise KernelError(f"{name} launch failed with CUDA error {rc}")
 
 
 def _vec(*tensors, width: int) -> int:

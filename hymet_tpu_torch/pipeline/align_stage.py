@@ -11,15 +11,14 @@ mapped onto it, ``resultados.paf``.
   or holds another k or w, is rebuilt, as is every cache under
   ``cfg.force_download``;
 - the contigs go through :meth:`MinimizerAligner.map_batch`, on the staged
-  batches when `staged` holds this plan.
+  batches when `staged` holds this plan, with `aligner` when the caller
+  holds one on this reference's index (the run's resident cache).
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import pickle
-import zipfile
 from typing import Optional, Sequence
 
 from hymet_tpu_torch.io.minimizer_index import MinimizerIndex
@@ -43,8 +42,7 @@ def load_or_build_index(combined_fasta: str, cfg: RunConfig, device="cuda") -> M
     if os.path.exists(path) and not cfg.force_download:
         try:
             index = MinimizerIndex.load(path)
-        except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile,
-                pickle.UnpicklingError) as e:
+        except Exception as e:  # noqa: BLE001 — any unreadable cache is rebuilt
             logger.warning("cached index unreadable (%s); rebuilding", e)
         else:
             if index.k == cfg.align_k and index.w == cfg.align_w:
@@ -66,6 +64,7 @@ def run_align_stage(
     *,
     staged=None,
     device="cuda",
+    aligner: Optional[MinimizerAligner] = None,
 ) -> str:
     """Map the contigs (`names`, `seqs`) onto the references of
     `combined_fasta`; returns the path of ``workdir/resultados.paf``."""
@@ -74,8 +73,10 @@ def run_align_stage(
     if os.path.exists(paf_path) and os.path.getsize(paf_path) > 0:
         logger.info("PAF exists; skipping alignment")
         return paf_path
-    index = load_or_build_index(combined_fasta, cfg, device)
-    aligner = MinimizerAligner(index, AlignerConfig(batch_pad=cfg.align_batch_pad), device=device)
+    if aligner is None:
+        index = load_or_build_index(combined_fasta, cfg, device)
+        aligner = MinimizerAligner(index, AlignerConfig(batch_pad=cfg.align_batch_pad),
+                                   device=device)
     records = aligner.map_batch(names, seqs, staged=staged)
     os.makedirs(workdir, exist_ok=True)
     write_paf(paf_path, records)

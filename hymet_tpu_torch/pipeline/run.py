@@ -1,0 +1,431 @@
+"""End-to-end classification run on one device: the ``run_hymet_cami.sh``
+replacement (counterpart of hymet_tpu.pipeline.run, single device).
+
+    ClassificationRun(config, device="cuda").execute()
+
+Stage layout and intermediate files mirror the reference batch script:
+
+  0. upload-once contig staging (screen and align read the same device
+     batches)
+  1. sketch screen over 1..N sketch DBs -> selected_genomes.txt
+     (``run_hymet_cami.sh:82-99``)
+  2. candidate limiting (``:101-126``)
+  3. reference set build, cached content-addressed by
+     sha1(selected_genomes.txt) (``:129-165``), or a preset combined FASTA
+  4. minimizer index + mapping -> resultados.paf (``:167-171``; the .mmi
+     cache becomes a .npz minimizer-index cache, and the aligner stays
+     resident on the device between runs of one process)
+  5. weighted-LCA classification -> classified_sequences.tsv (``:174-180``)
+     with the first-hit fallback when <2 rows (``:182-206``)
+  6. CAMI export -> hymet.<sample>.cami.tsv (``:214-218``)
+
+Every stage is idempotent: outputs found on disk are reused (the
+reference's stage-skip semantics). Each stage's seconds (ending in a
+device synchronize) land in ``timings`` and ``metadata.json``.
+
+Not here: the JAX package's multihost and mesh paths (``db_shards > 1``
+raises; ROADMAP B11), its ``jax.profiler`` hook, the ``legacy`` classifier
+backend and ``HYMET_PROFILE_WEIGHT=length`` (both raise; ROADMAP queue A).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+import shutil
+import time
+
+import torch
+
+from hymet_tpu_torch.evalx.cami import classified_to_cami
+from hymet_tpu_torch.io.fasta import read_fasta
+from hymet_tpu_torch.io.sketchdb import load_sketch_db
+from hymet_tpu_torch.models.aligner import AlignerConfig, MinimizerAligner
+from hymet_tpu_torch.models.first_hit import (
+    build_id_map,
+    classify_first_hit,
+    write_fallback_classified,
+)
+from hymet_tpu_torch.models.weighted_lca import BACKENDS, classify_paf
+from hymet_tpu_torch.ops.hash_kernels import KernelError
+from hymet_tpu_torch.ops.lca import LCA_MAX_BUCKET
+from hymet_tpu_torch.pipeline.align_stage import (
+    index_cache_path,
+    load_or_build_index,
+    run_align_stage,
+)
+from hymet_tpu_torch.pipeline.candidates import limit_candidates_files
+from hymet_tpu_torch.pipeline.reference_stage import (
+    AssemblySummarySource,
+    LocalGenomeCatalog,
+    build_reference_from_combined,
+    build_reference_set,
+)
+from hymet_tpu_torch.pipeline.screen_stage import run_screen_stage
+from hymet_tpu_torch.pipeline.staged import StagedContigs
+from hymet_tpu_torch.taxonomy.db import TaxonomyDB
+from hymet_tpu_torch.utils.config import RunConfig
+from hymet_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger("hymet_tpu_torch.run")
+
+# Device-resident aligner cache (see _stage_align): (index path, mtime,
+# size, aligner config, k/w, device) -> MinimizerAligner whose search
+# tables already live on the device. A small LRU: a serving process maps
+# many samples against one candidate index, and two slots cover
+# alternating samples. HYMET_RESIDENT_INDEX=0 turns it off.
+_RESIDENT_ALIGNERS: dict = {}
+_RESIDENT_MAX = 2
+
+# Failures the first-hit fallback must not hide: a kernel that does not
+# build or launch, and the card's own errors.
+_DEVICE_ERRORS = (KernelError, torch.cuda.OutOfMemoryError) + (
+    (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ()
+)
+
+
+def _device_fault(e: BaseException) -> bool:
+    return isinstance(e, _DEVICE_ERRORS) or (isinstance(e, RuntimeError) and "CUDA" in str(e))
+
+
+def _resident_key(idx_path: str, aln_cfg: AlignerConfig, cfg: RunConfig, dev: torch.device):
+    if os.environ.get("HYMET_RESIDENT_INDEX", "1") != "1":
+        return None
+    try:
+        st = os.stat(idx_path)
+    except OSError:
+        return None
+    return (os.path.abspath(idx_path), st.st_mtime_ns, st.st_size, repr(aln_cfg),
+            (cfg.align_k, cfg.align_w), str(dev))
+
+
+def _resident_aligner_get(idx_path, aln_cfg, cfg, dev):
+    key = None if cfg.force_download else _resident_key(idx_path, aln_cfg, cfg, dev)
+    aligner = _RESIDENT_ALIGNERS.pop(key, None)
+    if aligner is not None:  # LRU refresh
+        _RESIDENT_ALIGNERS[key] = aligner
+    return aligner
+
+
+def _resident_aligner_put(idx_path, aln_cfg, cfg, dev, aligner) -> None:
+    key = _resident_key(idx_path, aln_cfg, cfg, dev)
+    if key is None:
+        return
+    _RESIDENT_ALIGNERS[key] = aligner
+    while len(_RESIDENT_ALIGNERS) > _RESIDENT_MAX:
+        _RESIDENT_ALIGNERS.pop(next(iter(_RESIDENT_ALIGNERS)))
+
+
+def _count_lines(path: str) -> int:
+    if not os.path.exists(path):
+        return 0
+    with open(path, "rb") as f:
+        return sum(1 for _ in f)
+
+
+class ClassificationRun:
+    """One sample's run on `device` (default the card; raises without
+    one). ``timings`` holds each stage's seconds; ``fallback_ran`` says
+    whether the first-hit fallback wrote the classification."""
+
+    def __init__(self, config: RunConfig, device="cuda"):
+        if config.db_shards > 1:
+            raise NotImplementedError(
+                "db_shards > 1 shards the reference DBs over several devices; the port "
+                "runs on one (ROADMAP B11)")
+        if config.classifier_backend == "legacy":
+            raise NotImplementedError("the legacy classifier backend is not ported yet "
+                                      "(ROADMAP queue A)")
+        if config.classifier_backend not in BACKENDS:
+            raise ValueError(f"unknown classifier_backend {config.classifier_backend!r}")
+        if os.environ.get("HYMET_PROFILE_WEIGHT", "count") == "length":
+            raise NotImplementedError("HYMET_PROFILE_WEIGHT=length is not ported yet "
+                                      "(ROADMAP queue A)")
+        self.cfg = config
+        self.dev = resolve_device(device)
+        self.workdir = os.path.join(config.outdir, "work")
+        self.timings = {}
+        self.fallback_ran = False
+        self._staged = None  # upload-once contig batches (_stage_contigs)
+        self._contigs = None  # (names, seqs) read once for both stages
+
+    # ------------------------------------------------------------------
+
+    def execute(self) -> str:
+        """Run all stages; returns the path to classified_sequences.tsv."""
+        cfg = self.cfg
+        if not cfg.input_fasta or not os.path.exists(cfg.input_fasta):
+            raise FileNotFoundError(f"missing FASTA {cfg.input_fasta}")
+        os.makedirs(self.workdir, exist_ok=True)
+        os.makedirs(os.path.join(cfg.outdir, "logs"), exist_ok=True)
+
+        self._stage_contigs()
+        if cfg.reference_fasta:
+            # preset combined reference: candidate selection is moot
+            combined, taxonomy_tsv = self._stage_reference_preset()
+        else:
+            selected_path = self._stage_screen()
+            self._stage_limit(selected_path)
+            combined, taxonomy_tsv = self._stage_reference(selected_path)
+        paf_path = self._stage_align(combined)
+        classified = self._stage_classify(paf_path, taxonomy_tsv)
+        self._stage_export(classified)
+        self._write_metadata()
+        return classified
+
+    # ------------------------------------------------------------------
+
+    def _timed(self, name: str, fn):
+        t0 = time.time()
+        out = fn()
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        self.timings[name] = time.time() - t0
+        logger.info("[stage %s] %.2fs", name, self.timings[name])
+        return out
+
+    def _stage_contigs(self) -> None:
+        """Upload-once contig staging (pipeline/staged.py): read, pack and
+        upload the sample a single time for both device stages."""
+        cfg = self.cfg
+
+        def run():
+            qnames, qseqs = read_fasta(cfg.input_fasta)
+            self._contigs = (qnames, qseqs)
+            self._staged = StagedContigs(
+                qnames, qseqs, cfg.align_batch_pad, cfg.align_k + cfg.align_w, device=self.dev
+            )
+            logger.info(
+                "staged %d contigs: %d device batches, %.1f MB packed "
+                "(uploaded once for screen + align)",
+                len(qseqs),
+                len(self._staged.device),
+                self._staged.packed_bytes / 1e6,
+            )
+
+        self._timed("upload", run)
+
+    def _stage_screen(self) -> str:
+        cfg = self.cfg
+        selected = os.path.join(self.workdir, "selected_genomes.txt")
+        if os.path.exists(selected) and os.path.getsize(selected) > 0:
+            logger.info("screen outputs exist; skipping")
+            return selected
+
+        def run():
+            dbs = [load_sketch_db(p) for p in cfg.sketch_dbs]
+            if not dbs:
+                raise RuntimeError("no sketch DBs configured (cfg.sketch_dbs)")
+            labels = [
+                os.path.splitext(os.path.basename(p))[0] for p in cfg.sketch_dbs
+            ]
+            return run_screen_stage(
+                dbs,
+                [cfg.input_fasta],
+                self.workdir,
+                initial_threshold=cfg.mash_thresh,
+                db_labels=labels,
+                chunk_bp=cfg.screen_chunk_bp,
+                staged=self._staged,
+                device=self.dev,
+            )
+
+        self._timed("screen", run)
+        return selected
+
+    def _stage_limit(self, selected_path: str) -> None:
+        cfg = self.cfg
+        score_files = [
+            os.path.join(self.workdir, f)
+            for f in os.listdir(self.workdir)
+            if f.endswith("_sorted.tab")
+        ]
+        limited = selected_path + ".limited"
+        self._timed(
+            "limit",
+            lambda: limit_candidates_files(
+                selected_path,
+                limited,
+                sorted(score_files),
+                max_candidates=cfg.cand_max,
+                dedupe=cfg.species_dedup,
+                assembly_dir=cfg.assembly_summary_dir,
+                log_path=cfg.cand_limit_log,
+            ),
+        )
+        os.replace(limited, selected_path)
+        if _count_lines(selected_path) == 0:
+            raise RuntimeError("candidate list empty after applying limit")
+
+    def _stage_reference_preset(self):
+        cfg = self.cfg
+        src = cfg.reference_fasta
+        st = os.stat(src)
+        key = hashlib.sha1(
+            f"{os.path.abspath(src)}:{st.st_size}:{int(st.st_mtime)}".encode()
+        ).hexdigest()
+        cache_dir = os.path.join(cfg.cache_root, key)
+        combined = os.path.join(cache_dir, "combined_genomes.fasta")
+        taxonomy = os.path.join(cache_dir, "detailed_taxonomy.tsv")
+        if os.path.exists(combined) and os.path.getsize(combined) > 0:
+            logger.info("preset reference cache hit for %s", key)
+            return combined, taxonomy
+
+        self._timed(
+            "reference",
+            lambda: build_reference_from_combined(src, cache_dir, cfg.seqid2taxid),
+        )
+        return combined, taxonomy
+
+    def _cache_key(self, selected_path: str) -> str:
+        with open(selected_path, "rb") as f:
+            return hashlib.sha1(f.read()).hexdigest()
+
+    def _stage_reference(self, selected_path: str):
+        cfg = self.cfg
+        key = self._cache_key(selected_path)
+        cache_dir = os.path.join(cfg.cache_root, key)
+        combined = os.path.join(cache_dir, "combined_genomes.fasta")
+        taxonomy = os.path.join(cache_dir, "detailed_taxonomy.tsv")
+        logger.info("cache key %s -> %s", key, cache_dir)
+        if cfg.force_download:
+            for p in (combined, taxonomy):
+                if os.path.exists(p):
+                    os.remove(p)
+        if os.path.exists(combined) and os.path.getsize(combined) > 0:
+            logger.info("cache hit for %s", key)
+            return combined, taxonomy
+
+        with open(selected_path) as f:
+            names = [line.strip() for line in f if line.strip()]
+
+        catalog = None
+        if cfg.genome_catalog:
+            if os.path.isdir(cfg.genome_catalog):
+                catalog = LocalGenomeCatalog.from_directory(
+                    cfg.genome_catalog, cfg.seqid2taxid
+                )
+            else:
+                catalog = LocalGenomeCatalog.from_refs_tsv(cfg.genome_catalog)
+        source = None
+        if cfg.allow_download and cfg.assembly_summary_dir:
+            source = AssemblySummarySource(cfg.assembly_summary_dir)
+
+        self._timed(
+            "reference",
+            lambda: build_reference_set(names, cache_dir, catalog, source),
+        )
+        return combined, taxonomy
+
+    def _stage_align(self, combined: str) -> str:
+        cfg = self.cfg
+        paf_path = os.path.join(self.workdir, "resultados.paf")
+        if os.path.exists(paf_path) and os.path.getsize(paf_path) > 0:
+            logger.info("PAF exists; skipping alignment")
+            return paf_path
+        aln_cfg = AlignerConfig(batch_pad=cfg.align_batch_pad)
+        # the LCA bucketer drops nothing only while the aligner's per-query
+        # record cap fits its largest bucket: fail here, not with wrong
+        # abundances later
+        if aln_cfg.max_secondary + 1 > LCA_MAX_BUCKET:
+            raise ValueError(
+                f"AlignerConfig.max_secondary={aln_cfg.max_secondary} can emit "
+                f"{aln_cfg.max_secondary + 1} records/query > the LCA bucket ceiling "
+                f"{LCA_MAX_BUCKET} (ops/lca.py DEFAULT_BUCKETS)"
+            )
+        idx_path = index_cache_path(combined, cfg)
+
+        def run():
+            aligner = _resident_aligner_get(idx_path, aln_cfg, cfg, self.dev)
+            if aligner is None:
+                index = load_or_build_index(combined, cfg, self.dev)
+                aligner = MinimizerAligner(index, aln_cfg, device=self.dev)
+                _resident_aligner_put(idx_path, aln_cfg, cfg, self.dev, aligner)
+            else:
+                logger.info("resident device index: %s", idx_path)
+            qnames, qseqs = self._contigs
+            run_align_stage(combined, qnames, qseqs, self.workdir, cfg, staged=self._staged,
+                            device=self.dev, aligner=aligner)
+
+        self._timed("align", run)
+        return paf_path
+
+    def _stage_classify(self, paf_path: str, taxonomy_tsv: str) -> str:
+        cfg = self.cfg
+        out = os.path.join(self.workdir, "classified_sequences.tsv")
+        hierarchy = self._hierarchy_path()
+
+        def run():
+            try:
+                classify_paf(paf_path, taxonomy_tsv, hierarchy, out,
+                             backend=cfg.classifier_backend, device=self.dev)
+            except Exception as e:  # noqa: BLE001 — reference tolerates (|| true)
+                if _device_fault(e):
+                    raise
+                logger.error("primary classification failed: %s", e)
+            if _count_lines(out) < 2:
+                logger.warning("primary classification empty -> first-hit fallback")
+                self.fallback_ran = True
+                id2tax = build_id_map(taxonomy_tsv)
+                frows, _ = classify_first_hit(paf_path, id2tax)
+                write_fallback_classified(out, frows)
+                if _count_lines(out) < 2:
+                    raise RuntimeError("classification still empty after fallback")
+            return out
+
+        self._timed("classify", run)
+        final = os.path.join(cfg.outdir, "classified_sequences.tsv")
+        if os.path.abspath(final) != os.path.abspath(out):
+            shutil.copyfile(out, final)
+        return final
+
+    def _hierarchy_path(self) -> str:
+        cfg = self.cfg
+        if not cfg.taxonomy_dir:
+            raise RuntimeError("taxonomy_dir not configured")
+        # accept a prebuilt hierarchy TSV, or a taxdump dir to build from
+        tsv = (
+            cfg.taxonomy_dir
+            if cfg.taxonomy_dir.endswith(".tsv")
+            else os.path.join(cfg.taxonomy_dir, "taxonomy_hierarchy.tsv")
+        )
+        if os.path.exists(tsv):
+            return tsv
+        names_dmp = os.path.join(cfg.taxonomy_dir, "names.dmp")
+        if os.path.exists(names_dmp):
+            logger.info("building taxonomy hierarchy from taxdump")
+            db = TaxonomyDB.from_taxdump(cfg.taxonomy_dir)
+            db.write_hierarchy_tsv(tsv)
+            return tsv
+        raise RuntimeError(f"no taxonomy found under {cfg.taxonomy_dir}")
+
+    def _taxdb(self) -> TaxonomyDB:
+        cfg = self.cfg
+        names_dmp = os.path.join(cfg.taxonomy_dir, "names.dmp") if cfg.taxonomy_dir else ""
+        if names_dmp and os.path.exists(names_dmp):
+            return TaxonomyDB.from_taxdump(cfg.taxonomy_dir)
+        return TaxonomyDB.from_hierarchy_tsv(self._hierarchy_path())
+
+    def _stage_export(self, classified: str) -> str:
+        cfg = self.cfg
+        sample = os.path.splitext(os.path.basename(cfg.input_fasta))[0]
+        out = os.path.join(cfg.outdir, f"hymet.{sample}.cami.tsv")
+        self._timed("export", lambda: classified_to_cami(classified, self._taxdb(), out, sample))
+        return out
+
+    def _write_metadata(self) -> None:
+        meta = {
+            "tool": "hymet_tpu_torch",
+            "device": str(self.dev),
+            "config": {
+                k: v
+                for k, v in self.cfg.__dict__.items()
+                if isinstance(v, (str, int, float, bool, list, type(None)))
+            },
+            "timings_sec": {k: round(v, 3) for k, v in self.timings.items()},
+            "first_hit_fallback": self.fallback_ran,
+        }
+        with open(os.path.join(self.cfg.outdir, "metadata.json"), "w") as f:
+            json.dump(meta, f, indent=2)

@@ -5,6 +5,7 @@ rebuild a corrupt, mismatched or forced one)."""
 
 import filecmp
 import os
+import zipfile
 
 import numpy as np
 import pytest
@@ -92,11 +93,27 @@ def test_existing_paf_is_kept(world, tmp_path):
     assert filecmp.cmp(str(out / "resultados.paf"), jpaf, shallow=False)
 
 
-@pytest.mark.parametrize("cache", ["other_reference", "other_kw", "corrupt", "forced"])
+def _damage_stream(path: str, member: str) -> None:
+    """Flip one byte 20 bytes into `member`'s deflate stream: the archive's
+    directory still reads, the member's inflate raises zlib.error."""
+    with zipfile.ZipFile(path) as z:
+        info = z.getinfo(member)
+    with open(path, "r+b") as f:
+        f.seek(info.header_offset + 26)
+        name_len, extra_len = np.frombuffer(f.read(4), dtype="<u2")
+        at = info.header_offset + 30 + int(name_len) + int(extra_len) + 20
+        f.seek(at)
+        byte = f.read(1)[0]
+        f.seek(at)
+        f.write(bytes([byte ^ 0xFF]))
+
+
+@pytest.mark.parametrize("cache", ["other_reference", "other_kw", "corrupt", "damaged_stream", "forced"])
 def test_cached_index_reused_or_rebuilt(world, tmp_path, cache):
     """A cached index with cfg's k and w is used as it is (here one of
     another reference, which shows that it was used); one with other k/w,
-    an unreadable one, or any under force_download is rebuilt."""
+    an unreadable one (not an archive, or a member whose deflate stream is
+    damaged), or any under force_download is rebuilt."""
     _fasta, names, seqs, jpaf = world
     fasta = _fresh_ref(world, tmp_path)
     path = index_cache_path(fasta, _cfg())
@@ -109,6 +126,11 @@ def test_cached_index_reused_or_rebuilt(world, tmp_path, cache):
         TIndex.build_from_fasta(fasta, k=15, w=10, device="cpu").save(path)
     else:
         only_first.save(path)
+    if cache == "damaged_stream":
+        _damage_stream(path, "hashes.npy")
+        with pytest.raises(Exception) as raised:
+            TIndex.load(path)
+        assert type(raised.value).__name__ == "error" and raised.value.__class__.__module__ == "zlib"
     paf = run_align_stage(fasta, names, seqs, str(tmp_path / "out"), _cfg(force_download=cache == "forced"),
                           device="cpu")
     reused = cache == "other_reference"

@@ -387,3 +387,89 @@ def test_align_slice_kernel_matches_plain_on_card(tmp_path):
         plain = run_align_stage(str(fasta), names, seqs, str(tmp_path / "plain"), staged=staged, device="cuda")
     assert [fn.launches for fn in ak.KERNELS] == launched
     assert os.path.getsize(paf) > 0 and filecmp.cmp(paf, plain, shallow=False)
+
+
+LCA_SETS = {(seed, name): rest for seed in (0, 1, 2)
+            for name, *rest in chip_smoke.lca_edge_sets(seed, big_q=16)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,name", list(LCA_SETS))
+def test_lca_kernel_matches_plain_bit_for_bit(seed, name):
+    """weighted_lca's kernel equals weighted_lca_torch on the card, names,
+    depths and float64 confidence bits, at every bucket size
+    (chip_smoke.lca_edge_sets: ties on purpose, -1 rows and padding
+    queries, all-zero rank rows, no name at rank 0, zero totals)."""
+    _need_card()
+    from hymet_tpu_torch.ops import lca
+
+    rows, w, table = (torch.from_numpy(x).cuda() for x in LCA_SETS[seed, name])
+    before = lca.weighted_lca.launches
+    got = lca.weighted_lca(rows, w, table)
+    want = lca.weighted_lca_torch(rows, w, table)
+    torch.cuda.synchronize()
+    assert lca.weighted_lca.launches == before + 1
+    chip_smoke.check_equal(f"lca seed {seed}, {name}", got, want)
+    assert set(want[1].tolist()) >= {0, 8}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,H", [(4096, 8), (513, 32), (37, 128), (1, 2048), (3, 5), (2, 1000)])
+def test_lca_kernel_matches_plain_on_random_batches(Q, H):
+    """Many queries a launch, and hit counts that are no bucket size."""
+    _need_card()
+    from hymet_tpu_torch.ops import lca
+
+    rng = np.random.default_rng(Q * H)
+    table = torch.from_numpy(rng.integers(0, 4, (50, 8)).astype(np.int32)).cuda()
+    rows = torch.from_numpy(rng.integers(-1, 50, (Q, H)).astype(np.int32)).cuda()
+    w = torch.from_numpy(rng.random((Q, H)) * 10.0 ** rng.uniform(-3, 3, (Q, H))).cuda()
+    chip_smoke.check_equal(f"lca [{Q}, {H}]", lca.weighted_lca(rows, w, table),
+                           lca.weighted_lca_torch(rows, w, table))
+
+
+@pytest.mark.gpu
+def test_lca_kernel_refuses_more_hits_than_the_largest_bucket():
+    _need_card()
+    from hymet_tpu_torch.ops import lca
+
+    before = lca.weighted_lca.launches
+    with pytest.raises(ValueError, match="H <= 2048"):
+        lca.weighted_lca(torch.zeros((1, 2049), dtype=torch.int32, device="cuda"),
+                         torch.zeros((1, 2049), dtype=torch.float64, device="cuda"),
+                         torch.zeros((1, 8), dtype=torch.int32, device="cuda"))
+    assert lca.weighted_lca.launches == before
+
+
+@pytest.mark.gpu
+def test_execute_on_card_matches_cpu(tmp_path):
+    """ClassificationRun.execute on the card (60 gut contigs, the in-repo
+    sketch DBs, genomes and taxonomy, 5 candidates) writes the bytes the
+    same run writes on the CPU, through the LCA kernel, with no
+    first-hit fallback."""
+    _need_card()
+    from hymet_tpu_torch.ops import lca
+    from hymet_tpu_torch.pipeline.run import ClassificationRun
+    from hymet_tpu_torch.utils.config import RunConfig
+
+    names, seqs = read_fasta(os.path.join(WORLD, "data", "camisyn_gut", "contigs.fna"))
+    sample = tmp_path / "gut60.fna"
+    sample.write_text("".join(f">{n}\n{s.decode()}\n" for n, s in zip(names[:60], seqs[:60])))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        cfg = RunConfig(input_fasta=str(sample), outdir=str(tmp_path / device), cand_max=5,
+                        cache_root=str(tmp_path / f"cache_{device}"),
+                        taxonomy_dir=os.path.join(WORLD, "taxonomy"),
+                        sketch_dbs=[os.path.join(WORLD, f"{label}.npz") for label in LABELS],
+                        genome_catalog=os.path.join(WORLD, "genomes"),
+                        seqid2taxid=os.path.join(WORLD, "acc2taxid.tsv"))
+        lca.weighted_lca.launches = 0
+        run = ClassificationRun(cfg, device=device)
+        run.execute()
+        assert not run.fallback_ran
+        outs[device] = (cfg.outdir, lca.weighted_lca.launches)
+    assert outs["cuda"][1] > 0 and outs["cpu"][1] == 0
+    for name in ("work/selected_genomes.txt", "work/resultados.paf", "classified_sequences.tsv",
+                 "hymet.gut60.cami.tsv"):
+        a, b = (os.path.join(outs[d][0], name) for d in ("cuda", "cpu"))
+        assert os.path.getsize(a) > 0 and filecmp.cmp(a, b, shallow=False), name

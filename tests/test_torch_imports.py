@@ -2,6 +2,7 @@
 with ``jax`` and ``hymet_tpu`` blocked, and the entry points run on the
 card unless the caller asks for the CPU — without a card they raise."""
 
+import json
 import os
 import subprocess
 import sys
@@ -50,7 +51,7 @@ def test_port_imports_without_jax_or_reference_package():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 12  # every module was walked
+    assert int(out.stdout.strip().splitlines()[-1]) >= 30  # every module was walked
 
 
 ALIGN_MODULES = [
@@ -61,20 +62,64 @@ ALIGN_MODULES = [
 ]
 
 
-@pytest.mark.parametrize("module", ALIGN_MODULES)
-def test_align_module_imports_without_jax_or_reference_package(module):
-    """Each module of the align slice, imported alone in a fresh process
-    with jax and hymet_tpu blocked, pulls in neither."""
-    code = _BLOCKED_IMPORTS.split("import hymet_tpu_torch")[0] + f"""
-import {module}
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hymet_tpu")]
-assert not bad, bad
+RUN_MODULES = [
+    "hymet_tpu_torch.taxonomy", "hymet_tpu_torch.taxonomy.lineage",
+    "hymet_tpu_torch.taxonomy.idmap", "hymet_tpu_torch.taxonomy.db", "hymet_tpu_torch.ops.lca",
+    "hymet_tpu_torch.models.weighted_lca", "hymet_tpu_torch.models.first_hit",
+    "hymet_tpu_torch.pipeline.reference_stage", "hymet_tpu_torch.evalx.cami",
+    "hymet_tpu_torch.utils.config", "hymet_tpu_torch.pipeline.run",
+]
+
+
+_IMPORT_EACH_ALONE = r"""
+import importlib, json, os, sys, traceback
+
+import numpy, torch  # neither is blocked; imported once, before the forks
+
+results = {}
+for module in sys.argv[1:]:
+    pid = os.fork()
+    if pid == 0:  # a child imports one module into a process that has none of the package
+        try:
+            importlib.import_module(module)
+            bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hymet_tpu")]
+            os._exit(3 if bad else 0)
+        except BaseException:
+            traceback.print_exc()
+            os._exit(1)
+    results[module] = os.waitstatus_to_exitcode(os.waitpid(pid, 0)[1])
+print(json.dumps(results))
 """
+
+
+@pytest.fixture(scope="module")
+def alone():
+    """Exit code of importing each module of ALIGN_MODULES and RUN_MODULES
+    alone, with jax and hymet_tpu blocked (0: imported, pulling in
+    neither), from one interpreter that forks a child a module."""
+    code = _BLOCKED_IMPORTS.split("import hymet_tpu_torch")[0] + _IMPORT_EACH_ALONE
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
     env["PYTHONPATH"] = REPO
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code, *ALIGN_MODULES, *RUN_MODULES], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1]), out.stderr
+
+
+@pytest.mark.parametrize("module", ALIGN_MODULES)
+def test_align_module_imports_without_jax_or_reference_package(alone, module):
+    """Each module of the align slice, imported alone in a fresh process
+    with jax and hymet_tpu blocked, pulls in neither."""
+    codes, stderr = alone
+    assert codes[module] == 0, stderr
+
+
+@pytest.mark.parametrize("module", RUN_MODULES)
+def test_run_module_imports_without_jax_or_reference_package(alone, module):
+    """Each module of the reference -> classify -> export slice and the
+    run, imported alone with jax and hymet_tpu blocked, pulls in neither."""
+    codes, stderr = alone
+    assert codes[module] == 0, stderr
 
 
 def _no_card():
@@ -126,6 +171,28 @@ def test_align_entry_points_default_to_the_card(tmp_path):
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_run_entry_points_default_to_the_card(tmp_path):
+    """The run and the device classifier, called without device=, ask for
+    CUDA and raise here; the host backend and the plain LCA need no card."""
+    _no_card()
+    from hymet_tpu_torch.models.weighted_lca import classify_query_map
+    from hymet_tpu_torch.ops.lca import weighted_lca
+    from hymet_tpu_torch.pipeline.run import ClassificationRun
+    from hymet_tpu_torch.taxonomy.idmap import IdentifierMap
+    from hymet_tpu_torch.utils.config import RunConfig
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClassificationRun(RunConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        classify_query_map({"q": [("t", 1.0)]}, {"t": 1}, IdentifierMap(), {})
+    assert classify_query_map({"q": [("t", 1.0)]}, {"t": 1}, IdentifierMap(), {},
+                              backend="host") == [("q", "Unknown", "root", 0.0)]
+    rows = torch.zeros((1, 8), dtype=torch.int32)
+    n = weighted_lca(rows, torch.ones((1, 8), dtype=torch.float64),
+                     torch.ones((1, 8), dtype=torch.int32))[1]
+    assert n.tolist() == [8]
 
 
 def test_chip_smoke_refuses_to_run_without_card():
@@ -231,3 +298,24 @@ def test_chip_smoke_align_bounds(tmp_path, monkeypatch):
     out = tmp_path / "combined.fasta"
     assert chip_smoke.write_combined(str(tmp_path / "selected.txt"), str(out)) == 2
     assert out.read_bytes() == b">b2\nGGGG\n>a1\nACGT\nAC\n"
+
+
+def test_chip_smoke_lca_bound():
+    """lca_bound_ms counts 12 B a valid hit, 4 B a (row, rank) entry that
+    the queries' hits reach (once), 44 B a query written; and float64 adds:
+    a rank's named hits n, distinct names d: (n - d) + (n - 1), plus a
+    quotient and a product on a chosen rank."""
+    import chip_smoke
+
+    table = np.zeros((3, 8), np.int32)
+    table[0, :2], table[1, :2] = (1, 2), (1, 3)  # row 2: no name
+    rows = np.array([[0, 1, 0, -1], [-1, -1, -1, -1]], np.int32)
+    n_chosen = np.array([2, 0])  # query 0 evaluates ranks 0, 1 and 2
+    ms, by = chip_smoke.lca_bound_ms([(rows, n_chosen)], table, 132, 1.98e9)
+    nbytes = 3 * 12 + 2 * 44 + 6 * 4
+    assert (ms, by) == (pytest.approx(nbytes / 3.35e12 * 1e3), "bytes")
+    adds = (2 + 2 + 2) + (1 + 2 + 2)  # rank 0: one name over 3 hits; rank 1: two names
+    ms, by = chip_smoke.lca_bound_ms([(rows, n_chosen)], table, 132, 1.0)
+    assert (ms, by) == (pytest.approx(adds / 64 / 132 * 1e3), "operations")
+    twice, _ = chip_smoke.lca_bound_ms([(rows, n_chosen), (rows, n_chosen)], table, 132, 1.98e9)
+    assert twice == pytest.approx(2 * nbytes / 3.35e12 * 1e3)

@@ -19,7 +19,11 @@ Phases, each printed as one JSON line with its seconds:
              shape and ``screen_count`` on each batch of the staged gut
              screen; each kernel's time, its plain version's time and its
              bound (see :func:`window_ops`), ``screen_count`` summed over
-             one staged screen, with the survivors of the threshold.
+             one staged screen, with the survivors of the threshold; and
+             ``bottom_sketch`` bit for bit on :func:`bottom_sketch_edge_sets`
+             (s = 1, 7, 1000 and above a tile and the windows; poly-A;
+             duplicates across tiles; an all-invalid row; a real PAD_HASH;
+             tile edges; pooled segments).
 4. slice   — contigs -> staged upload -> sketch screen -> candidate limit
              on the in-repo synthetic CAMI world (validation/work_cami_suite:
              sketch1-3 and the camisyn_gut contigs), three times: with the
@@ -94,6 +98,24 @@ Phases, each printed as one JSON line with its seconds:
              the gut classification's batches; its time over those batches,
              its plain version's, its bound (:func:`lca_bound_ms`) and its
              share of the classify stage.
+10. db      — the user's command line: ``hymet_tpu_torch.cli.main(["sketch",
+             ...])`` rebuilds sketch1-3 on the card from
+             validation/work_cami_suite/genomes/ (each DB's files in its
+             committed rows' order; 234 genomes, k = 21, s = 1000), as
+             ``.npz`` and as ``.msh``, with every launch count set to 0
+             just before and read just after: ``kmer_hash`` and
+             ``bottom_sketch`` must be launched, and both files must equal
+             the committed sketch{1,2,3}.npz bit for bit (hashes, n_hashes,
+             lengths, names). Then each DB's build split (gunzip + parse +
+             encode, upload, kmer_hash, bottom_sketch), and on each build's
+             batches both kernels against their plain versions bit for bit,
+             timed with their bounds and, for ``bottom_sketch``, the library
+             call ``torch.unique``. Then ``cli.main(["run", ...])`` with the
+             three ``.msh`` DBs on phase 8's cache must write phase 8's
+             ``classified_sequences.tsv`` and CAMI profile byte for byte,
+             through every kernel of the run; and ``cli.main(["legacy",
+             ...])`` on the same cache must write the legacy classifier's
+             TSV of its own PAF.
 
 Then the card's name and power limit as nvidia-smi prints them, one JSON
 line with the kernels' numbers, and as the last line
@@ -120,10 +142,13 @@ from unittest import mock
 import numpy as np
 import torch
 
+from hymet_tpu_torch import cli
+from hymet_tpu_torch.io import sketchdb
 from hymet_tpu_torch.io.fasta import encode_seq, iter_fasta, pack_code_batch, read_fasta
 from hymet_tpu_torch.io.minimizer_index import MinimizerIndex, _row_batches
 from hymet_tpu_torch.io.paf import parse_paf_for_classification
-from hymet_tpu_torch.io.sketchdb import SketchDB, load_sketch_db
+from hymet_tpu_torch.io.sketchdb import SketchDB, build_sketch_db, load_sketch_db
+from hymet_tpu_torch.models.legacy_lca import classify_paf_legacy
 from hymet_tpu_torch.models.aligner import AlignerConfig, MinimizerAligner
 from hymet_tpu_torch.models.weighted_lca import (
     classify_paf,
@@ -131,7 +156,7 @@ from hymet_tpu_torch.models.weighted_lca import (
     load_hierarchy_vectors,
     taxid_weights,
 )
-from hymet_tpu_torch.ops import align_kernels, hash_kernels, lca
+from hymet_tpu_torch.ops import align_kernels, hash_kernels, lca, sketch_kernels
 from hymet_tpu_torch.ops.hash_kernels import count_hashes, screen_count_torch
 from hymet_tpu_torch.ops.hashing import SIGN, kmer_hashes_torch, unpack_code_batch
 from hymet_tpu_torch.ops.minimizer import extract_minimizers_numpy, extract_minimizers_torch
@@ -149,6 +174,7 @@ WORLD = os.path.join(REPO, "validation", "work_cami_suite")
 CONTIGS = os.path.join(WORLD, "data", "camisyn_gut", "contigs.fna")
 GENOMES = os.path.join(WORLD, "genomes")
 DB_LABELS = ["sketch1", "sketch2", "sketch3"]
+DB_BUILD_KERNELS = ("kmer_hash", "bottom_sketch")  # the DB build's, not the run's
 
 # H100 SXM memory rate (NVIDIA data sheet) and 32-bit integer issue rates
 # per SM and clock (CUDA C++ Programming Guide, arithmetic instruction
@@ -270,23 +296,56 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_run(fn) -> dict:
+PROFILE_ATTEMPTS = 3
+
+
+def profile_run(fn, counted=(), lossy: bool = False) -> dict:
     """One run of fn() under torch.profiler: its wall time, the device's
     busy time (CUDA kernels and copies, all on one stream), the idle
-    share, and every device activity (name, ms, count), longest first."""
+    share, and every device activity (name, ms, count), longest first.
+
+    `counted`: (wrapper, kernel name) pairs, each wrapper launching its
+    kernel at least once where it adds one to its count. A trace that
+    shows fewer of a kernel than its wrapper counted in the run has lost
+    device activity (a trace of a staged screen once held none of its 16
+    launches), so fn() runs again under a new trace, at most
+    PROFILE_ATTEMPTS times in all; no whole trace raises. `lossy`: the
+    run is long enough that the profiler drops a few activities from every
+    trace (on the H100, 14 or 15 of a map_batch's 16 ``minimizers``
+    launches showed in each of three traces), and the caller's checks
+    allow for it: a trace is then kept when each counted kernel shows at
+    least once. `launches` gives each kernel's count in the kept run,
+    `traced` the launches its trace shows, and `lost_traces` the traces
+    thrown away, as [name, counted, traced] lists."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
+    lost = []
+    for _attempt in range(PROFILE_ATTEMPTS):
+        before = [wrapper.launches for wrapper, _name in counted]
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        launches = {name: wrapper.launches - b for (wrapper, name), b in zip(counted, before)}
+        traced = {name: sum(e.count for e in rows if name in e.key) for name in launches}
+        short = [[name, n, traced[name]] for name, n in launches.items()
+                 if traced[name] < (min(n, 1) if lossy else n)]
+        if not short:
+            break
+        lost.append(short)
+        print(f"chip_smoke: the trace lost device activity {short}, tracing again",
+              file=sys.stderr)
+    else:
+        raise AssertionError(f"torch.profiler lost device activity in {PROFILE_ATTEMPTS} traces: "
+                             f"{lost}")
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     rows = sorted(rows, key=lambda e: -e.self_device_time_total)
     return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
-            "device_ms": [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in rows]}
+            "device_ms": [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in rows],
+            "launches": launches, "traced": traced, "lost_traces": lost}
 
 
 def codes_with_n_runs(rng: np.random.Generator, B: int, L: int) -> np.ndarray:
@@ -437,13 +496,22 @@ def phase_kernel(seed: int, cfg: RunConfig, sms: int, clock_hz: float) -> dict:
     # the two-pass path shows every pass the fused kernel replaces, by the
     # names phase 4 looks for
     packed, mask, _rows, L = staged.device[0]
-    prof = profile_run(lambda: two_pass(packed, mask, L, k, flat, t, *new_counts(flat.shape[0])))
+    prof = profile_run(lambda: two_pass(packed, mask, L, k, flat, t, *new_counts(flat.shape[0])),
+                       counted=((hash_kernels.kmer_hashes, "kmer_hash_kernel"),))
     seen = sorted({p for name, _ms, _n in prof["device_ms"] for p in PASSES_FUSED if p in name})
     if not set(PASSES_FUSED[:3]) <= set(seen) or not set(PASSES_FUSED[3:]) & set(seen):
         raise AssertionError(f"the two-pass path's device passes are not all named as expected: {seen}")
     screen["two_pass_passes"] = seen
     screen["valid_windows"] = sum(b[1] for b in batches)
     screen["survivors"] = sum(b[2] for b in batches)
+    sketch_cases, sketch_err = [], 0.0
+    for name, h, v, s, segments in bottom_sketch_edge_sets(seed):
+        h, v = torch.from_numpy(h).cuda(), torch.from_numpy(v).cuda()
+        want = sketch_kernels.bottom_sketch_torch(h, v, s, segments)
+        got = sketch_kernels.bottom_sketch(h, v, s, segments)
+        sketch_err = max(sketch_err, check_equal(f"bottom_sketch, {name}", got, want))
+        sketch_cases.append([name, *h.shape, s, want[1].tolist()[:8]])
+    cases["bottom_sketch"] = sketch_cases
     emit("kernel", t0, cases=cases, identical=True, sms=sms, clock_mhz=clock_hz / 1e6,
          kmer_hash={"shape": [MAIN_B, MAIN_L], "k": MAIN_K, "ms": hash_ms, "plain_ms": hash_plain_ms,
                     "bound_ms": hash_bound, "bound_by": hash_by,
@@ -457,6 +525,7 @@ def phase_kernel(seed: int, cfg: RunConfig, sms: int, clock_hz: float) -> dict:
         "screen_count": {"max_abs_err": max_err["screen_count"], "ms": screen["ms"],
                          "plain_ms": screen["plain_ms"], "bound_ms": screen["bound_ms"],
                          "bound_by": screen["bound_by"]},
+        "bottom_sketch": {"max_abs_err": sketch_err},
     }
 
 
@@ -560,14 +629,17 @@ def phase_slice(tmp: str, cfg: RunConfig) -> tuple:
     if selected <= 0:
         raise AssertionError("no genome selected")
     staged, dbs = stage_contigs(cfg), load_world_dbs()
-    prof = profile_run(lambda: screen(os.path.join(tmp, "profiled"), cfg, dbs, DB_LABELS, staged))
+    prof = profile_run(lambda: screen(os.path.join(tmp, "profiled"), cfg, dbs, DB_LABELS, staged),
+                       counted=((hash_kernels.screen_count, "screen_count_kernel"),))
     # the screen's update is one screen_count launch a batch: none of the
     # unpack's stack, the standalone hash, searchsorted or index_add_ passes
     names = {name: count for name, _ms, count in prof["device_ms"]}
     launched = sum(c for name, c in names.items() if "screen_count_kernel" in name)
     gone = [name for name in names for pass_ in PASSES_FUSED if pass_ in name]
-    if launched != len(staged.device) or gone:
-        raise AssertionError(f"staged screen ran {launched} screen_count launches for "
+    if launched != len(staged.device) or prof["launches"]["screen_count_kernel"] != launched \
+            or gone:
+        raise AssertionError(f"staged screen ran {launched} screen_count launches in the trace, "
+                             f"{prof['launches']['screen_count_kernel']} counted, for "
                              f"{len(staged.device)} batches, and {gone}")
     emit("slice", t0, files_identical=files, launches=launches, selected_genomes=selected,
          runs=runs, staged_screen_profile=prof)
@@ -714,14 +786,15 @@ def chain_bound_ms(batches, sms: int, clock_hz: float) -> tuple:
 
 def zero_launches() -> None:
     for fn in (hash_kernels.screen_count, hash_kernels.kmer_hashes, *align_kernels.KERNELS,
-               lca.weighted_lca):
+               lca.weighted_lca, sketch_kernels.bottom_sketch):
         fn.launches = 0
 
 
 def all_launches() -> dict:
     return {"screen_count": hash_kernels.screen_count.launches,
             "kmer_hash": hash_kernels.kmer_hashes.launches, **align_launches(),
-            "lca": lca.weighted_lca.launches}
+            "lca": lca.weighted_lca.launches,
+            "bottom_sketch": sketch_kernels.bottom_sketch.launches}
 
 
 def align_launches() -> dict:
@@ -826,7 +899,9 @@ def phase_align(tmp: str, cfg: RunConfig) -> tuple:
         if f.readlines() != lines:
             raise AssertionError("map_batch differs from resultados.paf")
     peak = torch.cuda.max_memory_allocated()
-    prof = profile_run(lambda: aligner.map_batch(names, seqs, staged=staged))
+    prof = profile_run(lambda: aligner.map_batch(names, seqs, staged=staged),
+                       counted=((align_kernels.minimizers, "minimizer_tile_kernel"),
+                                (align_kernels.anchors, "anchor_search_kernel")), lossy=True)
     minimizer_split = minimizer_activities(prof, aligner, index, staged)
     anchor_split = anchor_activities(prof, aligner, staged)
     emit("align", t0, selected_genomes=n_selected, reference_genomes=n_genomes,
@@ -860,7 +935,8 @@ def minimizer_activities(prof: dict, aligner: MinimizerAligner, index: Minimizer
     packed, mask, B, L = staged.device[0]
     cap = aligner._minimizer_cap(B, L)[1]
     calls = profile_run(lambda: [align_kernels.minimizers(packed, mask, L, index.k, index.w, cap)
-                                 for _ in range(PROFILED_CALLS)])
+                                 for _ in range(PROFILED_CALLS)],
+                        counted=((align_kernels.minimizers, "minimizer_tile_kernel"),), lossy=True)
     per_call = {name: round(count / PROFILED_CALLS) for name, _ms, count in calls["device_ms"]}
     activities = sum(per_call.values())
     tile = sum(n for name, n in per_call.items() if "minimizer_tile_kernel" in name)
@@ -892,7 +968,8 @@ def anchor_activities(prof: dict, aligner: MinimizerAligner, staged) -> dict:
     mz = align_kernels.minimizers(packed, mask, L, aligner.index.k, aligner.index.w, cap)
     args = (*mz, tables, cfg.max_occ, cfg.band_bits, acap, B, L)
     stated = align_kernels.sort_layout(tables, B, L, cfg.band_bits).launches
-    calls = profile_run(lambda: [align_kernels.anchors(*args) for _ in range(PROFILED_CALLS)])
+    calls = profile_run(lambda: [align_kernels.anchors(*args) for _ in range(PROFILED_CALLS)],
+                        counted=((align_kernels.anchors, "anchor_search_kernel"),), lossy=True)
     per_call = {name: round(count / PROFILED_CALLS) for name, _ms, count in calls["device_ms"]}
     activities = sum(per_call.values())
     if library or activities > stated or \
@@ -1564,7 +1641,7 @@ def phase_run(tmp: str) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t
     launches = all_launches()
-    missing = [k for k, n in launches.items() if n <= 0 and k != "kmer_hash"]
+    missing = [k for k, n in launches.items() if n <= 0 and k not in DB_BUILD_KERNELS]
     if missing:
         raise AssertionError(f"kernels not launched by execute: {missing} ({launches})")
     if run.fallback_ran:
@@ -1639,6 +1716,201 @@ def phase_lca(seed: int, gut: dict, sms: int, clock_hz: float) -> dict:
     return stats
 
 
+SKETCH_TILE = 4096  # windows a block of csrc/bottom_sketch.cu sorts
+
+
+def bottom_sketch_edge_sets(seed: int = 0) -> list:
+    """Hash batches for ``bottom_sketch`` as (name, hash int64 [B, n], valid
+    bool [B, n], s, segments): s = 1, 7 (not a power of two), 1000, above a
+    tile (5000) and above the windows; one value over three tiles (poly-A:
+    n = 1); a small pool of values repeated across tiles and rows; an
+    all-invalid row beside valid ones; a valid hash equal to PAD_HASH (-1),
+    and one that is invalid; n at the tile's edges (4095, 4096, 4097, 8193);
+    37 tiles in one row (merge rounds over odd list counts); pooled
+    segments of 2, 1 and 3 rows; and the values at the sign edge (0, -1,
+    INT64_MAX, INT64_MIN), whose order shows a signed compare."""
+    rng = np.random.default_rng(seed)
+
+    def rand(B, n):
+        return rng.integers(-(2**63), 2**63 - 1, (B, n), dtype=np.int64, endpoint=True)
+
+    def dense(B, n, p=1.0):
+        return rng.random((B, n)) < p
+
+    T = SKETCH_TILE
+    sets = [
+        ("s=1", rand(4, 2 * T + 9), dense(4, 2 * T + 9, 0.5), 1, None),
+        ("s=7", rand(3, T + 100), dense(3, T + 100, 0.9), 7, None),
+        ("poly-A", np.full((2, 3 * T), 0x1234567, np.int64), dense(2, 3 * T), 1000, None),
+        ("pool", rng.integers(-1500, 1500, (3, 3 * T + 5)).astype(np.int64),
+         dense(3, 3 * T + 5, 0.97), 1000, None),
+        ("s>tile", rand(2, 5 * T + 3), dense(2, 5 * T + 3), 5000, None),
+        ("s>windows", rand(3, 50), dense(3, 50), 1000, None),
+        ("37 tiles", rand(1, 37 * T - 11), dense(1, 37 * T - 11, 0.8), 300, None),
+        ("segments", rng.integers(-50_000, 50_000, (6, T + 500)).astype(np.int64),
+         dense(6, T + 500, 0.95), 300, [2, 1, 3]),
+        ("one segment", rand(4, 9), dense(4, 9), 20, [4]),
+    ]
+    for n in (T - 1, T, T + 1, 2 * T + 1):
+        sets.append((f"n={n}", rand(2, n), dense(2, n, 0.99), 1000, None))
+    h, v = rand(3, T + 7), dense(3, T + 7)
+    v[1] = False  # an all-invalid row
+    h[0, 3], h[2, T + 2], v[2, T + 2] = -1, -1, False  # a real PAD_HASH, an invalid one
+    sets.append(("pad and invalid", h, v, 10_000, None))
+    edge = np.array([[0, -1, 2**63 - 1, -(2**63), 1, -2, 5, 0]], np.int64)
+    sets.append(("sign edges", edge, np.ones_like(edge, bool), 6, None))
+    return sets
+
+
+def sketch_bound_ms(batches) -> tuple:
+    """(least time in ms, what bounds it) for ``bottom_sketch`` over batches
+    given as (B, n, segments, s): each window's hash (8 B) and valid flag
+    (1 B) read once, each segment's s hashes (8 B) and count (4 B) written
+    once; bytes bound it (a selection does a few operations a window)."""
+    nbytes = sum(9 * B * n + G * (8 * s + 4) for B, n, G, s in batches)
+    return nbytes / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def db_files(label: str) -> list:
+    """A committed sketch DB's genome files, in the order of its rows."""
+    names = load_sketch_db(os.path.join(WORLD, f"{label}.npz")).names
+    return [os.path.join(GENOMES, "_".join(n.split("_")[:2]), n) for n in names]
+
+
+def same_db(got: SketchDB, want: SketchDB, what: str) -> None:
+    if (got.k, got.sketch_size, got.names) != (want.k, want.sketch_size, want.names):
+        raise AssertionError(f"{what}: k, sketch size or names differ")
+    for f in ("hashes", "n_hashes", "lengths"):
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"{what}: {f} differs from the committed DB")
+
+
+def build_batches(paths: list) -> list:
+    """The DB build's batches of code rows (one a genome, its sequences
+    joined by an N), as ``sketch_rows`` forms them on the card."""
+    rows = [sketchdb.genome_row([encode_seq(seq) for _, seq in iter_fasta(p)]) for p in paths]
+    return [sketchdb.pad_rows([rows[i] for i in batch])
+            for batch in sketchdb.code_batches(rows, 21, sketchdb.BUILD_WINDOWS["cuda"])]
+
+
+def unique_pairs(h: torch.Tensor, v: torch.Tensor):
+    """(row, key) pairs of the valid windows, for the library call
+    ``torch.unique(pairs, dim=0)``: each row's distinct keys, sorted."""
+    rows = torch.arange(h.shape[0], device=h.device)[:, None].expand_as(h)
+    return torch.stack([rows[v], (h ^ SIGN)[v]], dim=1)
+
+
+def phase_db(tmp: str, sms: int, clock_hz: float) -> dict:
+    t0 = time.perf_counter()
+    os.environ["HYMET_PLATFORM"] = "cuda"
+    out_dir = os.path.join(tmp, "db")
+    os.makedirs(out_dir)
+    files = {label: db_files(label) for label in DB_LABELS}
+    committed = {label: load_sketch_db(os.path.join(WORLD, f"{label}.npz")) for label in DB_LABELS}
+    torch.cuda.synchronize()
+    zero_launches()
+    cli_s = {}
+    for label in DB_LABELS:
+        for ext in (".npz", ".msh"):
+            t = time.perf_counter()
+            rc = cli.main(["sketch", *files[label], "--out", os.path.join(out_dir, label + ext)])
+            cli_s[label + ext] = time.perf_counter() - t
+            if rc != 0:
+                raise AssertionError(f"sketch {label}{ext} exited {rc}")
+    launches = all_launches()
+    if min(launches[k] for k in DB_BUILD_KERNELS) <= 0:
+        raise AssertionError(f"the DB build did not launch both kernels: {launches}")
+    for label in DB_LABELS:
+        for ext in (".npz", ".msh"):
+            same_db(load_sketch_db(os.path.join(out_dir, label + ext)), committed[label],
+                    f"{label}{ext}")
+    # the build's split, in a build of its own (its steps end in a synchronize)
+    split = {}
+    for label in DB_LABELS:
+        timings = {}
+        t = time.perf_counter()
+        same_db(build_sketch_db(files[label], 21, 1000, device="cuda", timings=timings),
+                committed[label], f"{label} (timed build)")
+        split[label] = {"total_s": time.perf_counter() - t, **timings}
+    # both kernels on the build's batches: bit for bit, timed, bounded
+    stats = {"kmer_hash": {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0},
+             "bottom_sketch": {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}}
+    shapes, sketch_batches = [], []
+    for label in DB_LABELS:
+        for codes in build_batches(files[label]):
+            g = torch.from_numpy(codes).cuda()
+            k = stats["kmer_hash"]
+            k["max_abs_err"] = max(k["max_abs_err"], check_kernel(g, 21))
+            k["ms"] += cuda_ms(lambda: hash_kernels.kmer_hashes(g, 21), iters=5, warmup=2)
+            k["plain_ms"] += cuda_ms(lambda: kmer_hashes_torch(g, 21), iters=2, warmup=1)
+            h, v = hash_kernels.kmer_hashes(g, 21)
+            b = stats["bottom_sketch"]
+            got = sketch_kernels.bottom_sketch(h, v, 1000)
+            want = sketch_kernels.bottom_sketch_torch(h, v, 1000)
+            b["max_abs_err"] = max(b["max_abs_err"], check_equal(f"bottom_sketch, {label}", got,
+                                                                 want))
+            b["ms"] += cuda_ms(lambda: sketch_kernels.bottom_sketch(h, v, 1000), iters=5, warmup=2)
+            b["plain_ms"] += cuda_ms(lambda: sketch_kernels.bottom_sketch_torch(h, v, 1000),
+                                     iters=2, warmup=1)
+            pairs = unique_pairs(h, v)
+            b["library_ms"] += cuda_ms(lambda: torch.unique(pairs, dim=0, sorted=True),
+                                       iters=2, warmup=1)
+            shapes.append([label, *codes.shape, int(v.sum())])
+            sketch_batches.append((*h.shape, h.shape[0], 1000))
+            del g, h, v, pairs, got, want
+    stats["kmer_hash"]["bound_ms"], stats["kmer_hash"]["bound_by"] = hash_bound_ms(
+        [(B, L) for _label, B, L, _v in shapes], 21, sms, clock_hz)
+    stats["bottom_sketch"]["bound_ms"], stats["bottom_sketch"]["bound_by"] = sketch_bound_ms(
+        sketch_batches)
+    # the run and the legacy run, as a user types them, on the .msh DBs and
+    # phase 8's cache
+    cfg8 = run_config(tmp)
+    argv = ["--contigs", CONTIGS, "--taxonomy-dir", cfg8.taxonomy_dir, "--genome-catalog",
+            GENOMES, "--seqid2taxid", cfg8.seqid2taxid, "--cache-root", cfg8.cache_root,
+            "--cand-max", str(cfg8.cand_max)]
+    for label in DB_LABELS:
+        argv += ["--sketch-db", os.path.join(out_dir, f"{label}.msh")]
+    runs = {}
+    for cmd in ("run", "legacy"):
+        out = os.path.join(tmp, f"cli_{cmd}")
+        torch.cuda.synchronize()
+        zero_launches()
+        t = time.perf_counter()
+        rc = cli.main([cmd, *argv, "--out", out])
+        torch.cuda.synchronize()
+        runs[cmd] = {"s": time.perf_counter() - t, "launches": all_launches()}
+        if rc != 0:
+            raise AssertionError(f"{cmd} on the .msh DBs exited {rc}")
+        with open(os.path.join(out, "metadata.json")) as f:
+            if json.load(f)["first_hit_fallback"]:
+                raise AssertionError(f"{cmd}: the first-hit fallback ran")
+    missing = [k for k, n in runs["run"]["launches"].items() if n <= 0 and k not in DB_BUILD_KERNELS]
+    if missing:
+        raise AssertionError(f"kernels not launched by the .msh run: {missing}")
+    for name in ("classified_sequences.tsv", "hymet.contigs.cami.tsv"):
+        if not filecmp.cmp(os.path.join(tmp, "cli_run", name), os.path.join(cfg8.outdir, name),
+                           shallow=False):
+            raise AssertionError(f"{name} of the .msh CLI run differs from phase 8's")
+    legacy = os.path.join(tmp, "cli_legacy")
+    (key,) = os.listdir(cfg8.cache_root)
+    again = os.path.join(tmp, "legacy_again.tsv")
+    classified, total = classify_paf_legacy(
+        os.path.join(legacy, "work", "resultados.paf"),
+        os.path.join(cfg8.cache_root, key, "detailed_taxonomy.tsv"),
+        os.path.join(WORLD, "taxonomy", "taxonomy_hierarchy.tsv"), again)
+    if not filecmp.cmp(os.path.join(legacy, "classified_sequences.tsv"), again, shallow=False):
+        raise AssertionError("the legacy run's TSV is not the legacy classifier's")
+    emit("db", t0, genomes=sum(len(f) for f in files.values()),
+         bases=int(sum(committed[label].lengths.sum() for label in DB_LABELS)),
+         identical_to_committed=True, cli_sketch_s=cli_s, launches=launches, build_split=split,
+         batches=[["db", "rows", "L", "valid_windows"], *shapes], kernels=stats,
+         msh_run={"s": runs["run"]["s"], "launches": runs["run"]["launches"],
+                  "identical_to_phase_8": True},
+         legacy_run={"s": runs["legacy"]["s"], "classified": classified, "queries": total})
+    return {"launches": launches, **stats}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1670,16 +1942,19 @@ def main() -> int:
                                           clock_mhz * 1e6)
         gut = phase_run(tmp)
         lca_stats = phase_lca(args.seed, gut, sms, clock_mhz * 1e6)
+        db = phase_db(tmp, sms, clock_mhz * 1e6)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     print(smi)
     print(json.dumps({"kernels": [
+        # the DB build's path (phase 10): its launches and its batches' times
         {"name": "kmer_hash", "route": "cuda", "source": "hymet_tpu_torch/csrc/kmer_hash.cu",
          "replaces": "hymet_tpu/ops/pallas_kernels.py:35",
-         # off the main path since screen_count fused it: its count there is 0
-         "launches": launches["kmer_hash"], "main_path": False,
-         **kernels["kmer_hash"], "library_ms": None},
+         "launches": db["launches"]["kmer_hash"], "main_path": True,
+         **db["kmer_hash"], "max_abs_err": max(db["kmer_hash"]["max_abs_err"],
+                                               kernels["kmer_hash"]["max_abs_err"]),
+         "library_ms": None},
         {"name": "screen_count", "route": "cuda", "source": "hymet_tpu_torch/csrc/screen_count.cu",
          "replaces": "hymet_tpu/ops/pallas_kernels.py:35",
          "launches": launches["screen_count"], "main_path": True,
@@ -1694,6 +1969,11 @@ def main() -> int:
         {"name": "lca", "route": "cuda", "source": "hymet_tpu_torch/csrc/lca.cu",
          "replaces": "hymet_tpu/ops/lca.py:40", "launches": gut["launches"], "main_path": True,
          **lca_stats},
+        {"name": "bottom_sketch", "route": "cuda", "source": "hymet_tpu_torch/csrc/bottom_sketch.cu",
+         "replaces": "hymet_tpu/ops/sketch.py:919", "launches": db["launches"]["bottom_sketch"],
+         "main_path": True, **db["bottom_sketch"],
+         "max_abs_err": max(db["bottom_sketch"]["max_abs_err"],
+                            kernels["bottom_sketch"]["max_abs_err"])},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

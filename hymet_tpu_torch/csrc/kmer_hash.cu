@@ -9,7 +9,7 @@
 //           bytes (codes taken & 3, so invalid windows still get a defined
 //           hash), stored as the uint64 bit pattern in int64.
 // The screen's main path runs the fused screen_count.cu instead; this
-// kernel is the counterpart the DB sketch build will call.
+// kernel is the counterpart the DB sketch build calls.
 //
 // What bounds it on an H100: about 110 32-bit integer instructions per
 // window at k = 21 (75 ALU, 34 multiply-add; chip_smoke.py::window_ops)

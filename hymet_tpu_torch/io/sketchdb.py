@@ -1,20 +1,47 @@
 """Sketch database: the same columnar ``.npz`` layout as hymet_tpu's
-``SketchDB`` (bottom-s MinHash sketches, hash-compatible with Mash).
+``SketchDB`` (bottom-s MinHash sketches, hash-compatible with Mash), Mash
+``.msh`` files read and written (:mod:`hymet_tpu_torch.io.msh`), and the DB
+build on the card.
 
 The screen engine builds its flat search tables on the device
 (:func:`hymet_tpu_torch.ops.sketch.flat_index_device`); :meth:`SketchDB.flat_index`
 is the host form of the same tables.
+
+The build (:func:`build_sketch_db`, :func:`build_sketch_db_from_sequences`)
+gives the JAX host build's arrays element for element. The host gunzips,
+parses and encodes the FASTA; each genome becomes one row of codes, its
+sequences joined by one N code (no window spans an N, so no k-mer spans
+two sequences, as in ``sketch_genome_file``); rows go up in batches under
+a window budget, sorted by length, and the card hashes every window
+(:func:`~hymet_tpu_torch.ops.hash_kernels.kmer_hashes`, the Pallas
+kernel's counterpart) and keeps each row's s smallest distinct hashes
+(:func:`~hymet_tpu_torch.ops.sketch_kernels.bottom_sketch`). A row longer
+than the budget goes up in pieces that overlap by k - 1 bases, their
+sketches merged by the same kernel.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from hymet_tpu_torch.io.fasta import encode_seq, iter_fasta
+from hymet_tpu_torch.ops.hash_kernels import kmer_hashes
+from hymet_tpu_torch.ops.sketch_kernels import bottom_sketch
+from hymet_tpu_torch.utils.device import resolve_device
 
 PAD_HASH = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+# Windows a batch of the build holds, by device type; a window costs 10
+# bytes there (its code, hash and valid flag) and the sketch's candidate
+# lists about 20 bytes a window more at s >= 4096 (fewer below).
+BUILD_WINDOWS = {"cuda": 1 << 27, "cpu": 1 << 22}
+MAX_ROWS = 65535  # rows a batch may hold (the kernels' grid)
 
 
 @dataclass
@@ -74,6 +101,20 @@ class SketchDB:
             )
 
     @classmethod
+    def from_msh(cls, path: str) -> "SketchDB":
+        """Load a Mash ``.msh`` (Cap'n Proto) sketch DB, the format of the
+        reference's shipped ``data/sketch1-3.msh``."""
+        from hymet_tpu_torch.io.msh import sketchdb_from_msh
+
+        return sketchdb_from_msh(path)
+
+    def to_msh(self, path: str) -> None:
+        """Export as a Mash-compatible ``.msh`` file."""
+        from hymet_tpu_torch.io.msh import msh_from_sketchdb
+
+        msh_from_sketchdb(self, path)
+
+    @classmethod
     def concat(cls, dbs: Sequence["SketchDB"]) -> "SketchDB":
         """Row-concatenate DBs with the same k into one screening DB; per-DB
         rows come back by :meth:`hymet_tpu_torch.ops.sketch.ScreenResult.slice`."""
@@ -100,7 +141,209 @@ class SketchDB:
 
 
 def load_sketch_db(path: str) -> SketchDB:
-    """Load a sketch DB in the ``.npz`` layout (``.msh`` is not ported yet)."""
+    """Load a sketch DB by extension: ``.msh`` (Mash's Cap'n Proto files)
+    or the ``.npz`` layout."""
     if path.endswith(".msh"):
-        raise NotImplementedError(f"{path}: .msh sketch DBs are not supported by the port yet")
+        return SketchDB.from_msh(path)
     return SketchDB.load(path)
+
+
+def bottom_sketch_from_hashes(hashes: np.ndarray, s: int) -> Tuple[np.ndarray, int]:
+    """Bottom-s of the *distinct* hash set (Mash semantics), on the host.
+    Returns a length-s array (PAD_HASH padded) and the true count."""
+    uniq = np.unique(hashes)  # sorted
+    n = min(len(uniq), s)
+    out = np.full(s, PAD_HASH, dtype=np.uint64)
+    out[:n] = uniq[:n]
+    return out, n
+
+
+def genome_row(codes: List[np.ndarray]) -> np.ndarray:
+    """A genome's sequences as one row of codes, one N (code 4) between
+    two sequences: every window over it is invalid."""
+    if len(codes) == 1:
+        return codes[0]
+    sep = np.full(1, 4, np.uint8)
+    parts = [sep] * (2 * len(codes) - 1)
+    parts[::2] = codes
+    return np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+
+
+def _add_time(timings: Optional[dict], key: str, t0: float, dev: torch.device) -> float:
+    """Add the seconds since t0 (the card's work done) to timings[key];
+    returns the clock. A no-op without timings."""
+    if timings is None:
+        return t0
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    timings[key] = timings.get(key, 0.0) + t - t0
+    return t
+
+
+def code_batches(rows: List[np.ndarray], k: int, budget: int) -> Iterator[List[int]]:
+    """Indices of `rows` in batches: longest first, each batch at most
+    MAX_ROWS rows and at most `budget` windows padded to its longest row
+    (a row alone may exceed it); rows shorter than k in a batch of their
+    own."""
+    order = sorted(range(len(rows)), key=lambda i: -len(rows[i]))
+    batch: List[int] = []
+    for i in order:
+        L = len(rows[batch[0]]) if batch else len(rows[i])
+        short = len(rows[i]) < k <= L
+        if batch and (short or len(batch) == MAX_ROWS or (len(batch) + 1) * (L - k + 1) > budget):
+            yield batch
+            batch = []
+        batch.append(i)
+    if batch:
+        yield batch
+
+
+def pad_rows(rows: List[np.ndarray]) -> np.ndarray:
+    """Code rows as one [B, longest] batch, N (code 4) past each row."""
+    codes = np.full((len(rows), max(len(r) for r in rows)), 4, np.uint8)
+    for b, r in enumerate(rows):
+        codes[b, : len(r)] = r
+    return codes
+
+
+def _sketch_batch_rows(rows: List[np.ndarray], k: int, s: int, dev: torch.device,
+                       timings: Optional[dict]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One batch of code rows (the longest at least k) -> their sketches
+    [B, s] and counts [B] on `dev`."""
+    t = time.perf_counter()
+    codes = torch.from_numpy(pad_rows(rows)).to(dev)
+    t = _add_time(timings, "upload_s", t, dev)
+    h, valid = kmer_hashes(codes, k)
+    t = _add_time(timings, "kmer_hash_s", t, dev)
+    out = bottom_sketch(h, valid, s)
+    _add_time(timings, "bottom_sketch_s", t, dev)
+    if timings is not None:
+        timings["batches"] = timings.get("batches", 0) + 1
+        timings["windows"] = timings.get("windows", 0) + int(valid.numel())
+    return out
+
+
+def _sketch_long_row(row: np.ndarray, k: int, s: int, dev: torch.device, budget: int,
+                     timings: Optional[dict]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A row of more than `budget` windows in pieces of `budget` windows
+    (k - 1 bases shared by neighbours), each piece's sketch merged into
+    the running one as a segment of two rows."""
+    acc = None
+    for start in range(0, len(row) - k + 1, budget):
+        h, n = _sketch_batch_rows([row[start : start + budget + k - 1]], k, s, dev, timings)
+        if acc is not None:
+            both = torch.cat([acc[0], h])
+            counts = torch.cat([acc[1], n])
+            valid = torch.arange(s, device=dev)[None, :] < counts[:, None]
+            t = time.perf_counter()
+            h, n = bottom_sketch(both, valid, s, segments=[2])
+            _add_time(timings, "bottom_sketch_s", t, dev)
+        acc = (h, n)
+    return acc
+
+
+def sketch_rows(rows: Iterable[np.ndarray], k: int, s: int, device="cuda",
+                timings: Optional[dict] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """Rows of codes (one genome or sequence each) -> (sketches [R, s]
+    uint64, PAD_HASH padded; counts [R] int32): each row's s smallest
+    distinct valid k-mer hashes, on `device` (default the card).
+
+    Rows are read in groups of about one batch of windows and batched
+    longest first. With a `timings` dict, each step's seconds are added to
+    it (``read_s`` for pulling rows from `rows` — gunzip, parse, encode —
+    and ``upload_s``, ``kmer_hash_s``, ``bottom_sketch_s``, each ending in
+    a synchronize), with the ``batches`` and ``windows``."""
+    dev = resolve_device(device)
+    budget = BUILD_WINDOWS[dev.type]
+    hashes: List[np.ndarray] = []
+    counts: List[np.ndarray] = []
+    group: List[np.ndarray] = []
+    it = iter(rows)
+    done = False
+    while not done:
+        t = time.perf_counter()
+        size = 0
+        for row in it:
+            group.append(row)
+            size += len(row)
+            if size >= budget:
+                break
+        else:
+            done = True
+        _add_time(timings, "read_s", t, dev)
+        out_h = np.full((len(group), s), PAD_HASH, np.uint64)
+        out_n = np.zeros(len(group), np.int32)
+        for batch in code_batches(group, k, budget):
+            rows_b = [group[i] for i in batch]
+            if len(rows_b[0]) < k:
+                continue  # no window: an empty sketch
+            if len(rows_b[0]) - k + 1 > budget:
+                h, n = _sketch_long_row(rows_b[0], k, s, dev, budget, timings)
+            else:
+                h, n = _sketch_batch_rows(rows_b, k, s, dev, timings)
+            out_h[batch] = h.cpu().numpy().view(np.uint64)
+            out_n[batch] = n.cpu().numpy()
+        hashes.append(out_h)
+        counts.append(out_n)
+        group = []
+    return (np.concatenate(hashes) if hashes else np.zeros((0, s), np.uint64),
+            np.concatenate(counts) if counts else np.zeros(0, np.int32))
+
+
+def build_sketch_db(
+    genome_files: Sequence[str],
+    k: int = 21,
+    sketch_size: int = 1000,
+    names: Optional[Sequence[str]] = None,
+    device="cuda",
+    timings: Optional[dict] = None,
+) -> SketchDB:
+    """Build a reference sketch DB from genome FASTA files, one sketch a
+    file (all its sequences pooled, Mash's per-file default), on `device`
+    (default the card; see :func:`sketch_rows` for `timings`)."""
+    R = len(genome_files)
+    lengths = np.zeros(R, dtype=np.int64)
+
+    def rows():
+        for i, path in enumerate(genome_files):
+            codes = []
+            for _, seq in iter_fasta(path):
+                lengths[i] += len(seq)
+                codes.append(encode_seq(seq))
+            yield genome_row(codes)
+
+    hashes, n_hashes = sketch_rows(rows(), k, sketch_size, device, timings)
+    use_names = list(names) if names is not None else [os.path.basename(p) for p in genome_files]
+    return SketchDB(k=k, sketch_size=sketch_size, hashes=hashes, n_hashes=n_hashes,
+                    names=use_names, lengths=lengths, comments=[""] * R)
+
+
+def sketch_genome_file(path: str, k: int, s: int, device="cuda") -> Tuple[np.ndarray, int, int]:
+    """Sketch one genome FASTA (all sequences pooled). Returns (sketch [s],
+    n_hashes, total_bp)."""
+    db = build_sketch_db([path], k, s, device=device)
+    return db.hashes[0], int(db.n_hashes[0]), int(db.lengths[0])
+
+
+def build_sketch_db_from_sequences(
+    named_seqs: Iterable[Tuple[str, bytes]],
+    k: int = 21,
+    sketch_size: int = 1000,
+    device="cuda",
+) -> SketchDB:
+    """Sketch individual sequences (one sketch a sequence, Mash's ``-i``
+    mode), on `device` (default the card)."""
+    names: List[str] = []
+    lens: List[int] = []
+
+    def rows():
+        for name, seq in named_seqs:
+            names.append(name)
+            lens.append(len(seq))
+            yield encode_seq(seq)
+
+    hashes, n_hashes = sketch_rows(rows(), k, sketch_size, device)
+    return SketchDB(k=k, sketch_size=sketch_size, hashes=hashes, n_hashes=n_hashes,
+                    names=names, lengths=np.asarray(lens, dtype=np.int64),
+                    comments=[""] * len(names))

@@ -9,8 +9,9 @@ Counterpart of ``hymet_tpu/ops/pallas_kernels.py``:
   of a code batch, the direct counterpart of ``kmer_hashes_pallas``.
 
 Both build on ``csrc/kmer_core.cuh``. The align stage's kernels
-(:mod:`hymet_tpu_torch.ops.align_kernels`) and the weighted LCA
-(:mod:`hymet_tpu_torch.ops.lca`) live in the same library. The
+(:mod:`hymet_tpu_torch.ops.align_kernels`), the weighted LCA
+(:mod:`hymet_tpu_torch.ops.lca`) and the DB build's bottom-s sketch
+(:mod:`hymet_tpu_torch.ops.sketch_kernels`) live in the same library. The
 ``.cu`` sources are compiled at first use — never at import — one nvcc a
 source, all started together (the build runs inside chip_smoke.py's time
 limit, and side by side it takes about the time of the slowest source),
@@ -45,6 +46,7 @@ _CSRC = _PKG / "csrc"
 SOURCES = (
     _CSRC / "kmer_core.cuh", _CSRC / "scan.cuh", _CSRC / "kmer_hash.cu", _CSRC / "screen_count.cu",
     _CSRC / "minimizers.cu", _CSRC / "anchors.cu", _CSRC / "chains.cu", _CSRC / "lca.cu",
+    _CSRC / "bottom_sketch.cu",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -77,6 +79,8 @@ class KernelLibrary:
               _I, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
             (lib.chains_launch, [_P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _P]),
             (lib.lca_launch, [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
+            (lib.bottom_sketch_launch,
+             [_P, _P, _I, _LL, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]),
         ):
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

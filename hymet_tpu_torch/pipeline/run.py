@@ -15,8 +15,10 @@ Stage layout and intermediate files mirror the reference batch script:
   4. minimizer index + mapping -> resultados.paf (``:167-171``; the .mmi
      cache becomes a .npz minimizer-index cache, and the aligner stays
      resident on the device between runs of one process)
-  5. weighted-LCA classification -> classified_sequences.tsv (``:174-180``)
-     with the first-hit fallback when <2 rows (``:182-206``)
+  5. weighted-LCA classification -> classified_sequences.tsv (``:174-180``;
+     ``classifier_backend="legacy"``: ``classification.py``'s classifier,
+     as ``main.pl:113`` runs it) with the first-hit fallback when <2 rows
+     (``:182-206``)
   6. CAMI export -> hymet.<sample>.cami.tsv (``:214-218``)
 
 Every stage is idempotent: outputs found on disk are reused (the
@@ -24,8 +26,8 @@ reference's stage-skip semantics). Each stage's seconds (ending in a
 device synchronize) land in ``timings`` and ``metadata.json``.
 
 Not here: the JAX package's multihost and mesh paths (``db_shards > 1``
-raises; ROADMAP B11), its ``jax.profiler`` hook, the ``legacy`` classifier
-backend and ``HYMET_PROFILE_WEIGHT=length`` (both raise; ROADMAP queue A).
+raises; ROADMAP B11), its ``jax.profiler`` hook and
+``HYMET_PROFILE_WEIGHT=length`` (raises; ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from hymet_tpu_torch.models.first_hit import (
     classify_first_hit,
     write_fallback_classified,
 )
+from hymet_tpu_torch.models.legacy_lca import classify_paf_legacy
 from hymet_tpu_torch.models.weighted_lca import BACKENDS, classify_paf
 from hymet_tpu_torch.ops.hash_kernels import KernelError
 from hymet_tpu_torch.ops.lca import LCA_MAX_BUCKET
@@ -135,10 +138,7 @@ class ClassificationRun:
             raise NotImplementedError(
                 "db_shards > 1 shards the reference DBs over several devices; the port "
                 "runs on one (ROADMAP B11)")
-        if config.classifier_backend == "legacy":
-            raise NotImplementedError("the legacy classifier backend is not ported yet "
-                                      "(ROADMAP queue A)")
-        if config.classifier_backend not in BACKENDS:
+        if config.classifier_backend not in (*BACKENDS, "legacy"):
             raise ValueError(f"unknown classifier_backend {config.classifier_backend!r}")
         if os.environ.get("HYMET_PROFILE_WEIGHT", "count") == "length":
             raise NotImplementedError("HYMET_PROFILE_WEIGHT=length is not ported yet "
@@ -359,8 +359,11 @@ class ClassificationRun:
 
         def run():
             try:
-                classify_paf(paf_path, taxonomy_tsv, hierarchy, out,
-                             backend=cfg.classifier_backend, device=self.dev)
+                if cfg.classifier_backend == "legacy":
+                    classify_paf_legacy(paf_path, taxonomy_tsv, hierarchy, out)
+                else:
+                    classify_paf(paf_path, taxonomy_tsv, hierarchy, out,
+                                 backend=cfg.classifier_backend, device=self.dev)
             except Exception as e:  # noqa: BLE001 — reference tolerates (|| true)
                 if _device_fault(e):
                     raise

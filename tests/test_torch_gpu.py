@@ -1,6 +1,7 @@
 """hymet_tpu_torch on the card: the hand-written kernels against their plain
-PyTorch versions (kmer_hashes bit for bit, screen_count count for count)
-at the edge cases, and the screen slice through them. These need a CUDA
+PyTorch versions (kmer_hashes bit for bit, screen_count count for count,
+and the rest) at the edge cases, the slices through them, and the sketch
+DB build against the committed DBs. These need a CUDA
 card (and nvcc) and skip without one; on the card run
 ``python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py``
 (``tests/conftest.py`` imports jax, which the port does not need)."""
@@ -473,3 +474,86 @@ def test_execute_on_card_matches_cpu(tmp_path):
                  "hymet.gut60.cami.tsv"):
         a, b = (os.path.join(outs[d][0], name) for d in ("cuda", "cpu"))
         assert os.path.getsize(a) > 0 and filecmp.cmp(a, b, shallow=False), name
+
+
+# ----------------------------------------------------------------------
+# the DB build: bottom_sketch, sketch_batch, build_sketch_db
+
+SKETCH_SETS = {name: rest for name, *rest in chip_smoke.bottom_sketch_edge_sets(0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SKETCH_SETS))
+def test_bottom_sketch_kernel_matches_plain(name):
+    """chip_smoke.bottom_sketch_edge_sets: s = 1, 7, 1000, above a tile and
+    above the windows; poly-A; duplicates across tiles; an all-invalid row;
+    a real PAD_HASH; the tile's edges; 37 tiles; pooled segments; the sign
+    edge. Sketches and counts equal the plain version's, one launch a
+    call."""
+    _need_card()
+    from hymet_tpu_torch.ops import sketch_kernels
+
+    h, v, s, segments = SKETCH_SETS[name]
+    h, v = torch.from_numpy(h).cuda(), torch.from_numpy(v).cuda()
+    before = sketch_kernels.bottom_sketch.launches
+    got = sketch_kernels.bottom_sketch(h, v, s, segments)
+    want = sketch_kernels.bottom_sketch_torch(h, v, s, segments)
+    torch.cuda.synchronize()
+    assert sketch_kernels.bottom_sketch.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_bottom_sketch_kernel_refuses_what_it_does_not_take():
+    _need_card()
+    from hymet_tpu_torch.ops import sketch_kernels
+
+    before = sketch_kernels.bottom_sketch.launches
+    h = torch.zeros((2, 10), dtype=torch.int64, device="cuda")
+    v = torch.ones((2, 10), dtype=torch.bool, device="cuda")
+    for args in ((h.int(), v, 5), (h, v.int(), 5), (h[:, ::2], v[:, ::2], 5), (h, v, 0),
+                 (h, v.cpu(), 5)):
+        with pytest.raises(ValueError):
+            sketch_kernels.bottom_sketch(*args)
+    with pytest.raises(ValueError, match="segments"):
+        sketch_kernels.bottom_sketch(h, v, 5, [3])
+    assert sketch_kernels.bottom_sketch.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,k,s", [(3, 20_000, 21, 1000), (5, 4118, 15, 7), (2, 40, 32, 1)])
+def test_sketch_batch_on_card_matches_cpu(B, L, k, s):
+    _need_card()
+    from hymet_tpu_torch.ops.sketch import sketch_batch
+
+    rng = np.random.default_rng(B * L)
+    codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    codes[0, 100:150] = 4
+    codes[-1] = 0  # poly-A
+    got = sketch_batch(torch.from_numpy(codes).cuda(), k, s)
+    want = sketch_batch(torch.from_numpy(codes), k, s)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert int(want[1][-1]) == 1
+
+
+@pytest.mark.gpu
+def test_build_sketch_db_on_card_equals_committed(tmp_path):
+    """sketch1 rebuilt on the card from its 78 genome files equals the
+    committed sketch1.npz bit for bit, and again with a window budget that
+    puts every genome up in pieces merged by the kernel."""
+    _need_card()
+    from hymet_tpu_torch.io import sketchdb
+
+    want = load_sketch_db(os.path.join(WORLD, "sketch1.npz"))
+    files = chip_smoke.db_files("sketch1")
+    from hymet_tpu_torch.ops import sketch_kernels
+
+    before = (hash_kernels.kmer_hashes.launches, sketch_kernels.bottom_sketch.launches)
+    chip_smoke.same_db(sketchdb.build_sketch_db(files, 21, 1000, device="cuda"), want, "sketch1")
+    assert hash_kernels.kmer_hashes.launches > before[0]
+    assert sketch_kernels.bottom_sketch.launches > before[1]
+    with mock.patch.dict(sketchdb.BUILD_WINDOWS, cuda=300_000):
+        chip_smoke.same_db(sketchdb.build_sketch_db(files[:6], 21, 1000, device="cuda"),
+                           sketchdb.SketchDB(k=21, sketch_size=1000, hashes=want.hashes[:6],
+                                             n_hashes=want.n_hashes[:6], names=want.names[:6],
+                                             lengths=want.lengths[:6]), "sketch1[:6] in pieces")

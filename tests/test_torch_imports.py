@@ -71,6 +71,13 @@ RUN_MODULES = [
 ]
 
 
+CLI_MODULES = [
+    "hymet_tpu_torch.io.msh", "hymet_tpu_torch.io.sketchdb", "hymet_tpu_torch.ops.sketch_kernels",
+    "hymet_tpu_torch.ops.sketch", "hymet_tpu_torch.models.legacy_lca",
+    "hymet_tpu_torch.pipeline.prune_cache", "hymet_tpu_torch.cli", "hymet_tpu_torch.__main__",
+]
+
+
 _IMPORT_EACH_ALONE = r"""
 import importlib, json, os, sys, traceback
 
@@ -94,13 +101,14 @@ print(json.dumps(results))
 
 @pytest.fixture(scope="module")
 def alone():
-    """Exit code of importing each module of ALIGN_MODULES and RUN_MODULES
-    alone, with jax and hymet_tpu blocked (0: imported, pulling in
+    """Exit code of importing each module of ALIGN_MODULES, RUN_MODULES and
+    CLI_MODULES alone, with jax and hymet_tpu blocked (0: imported, pulling in
     neither), from one interpreter that forks a child a module."""
     code = _BLOCKED_IMPORTS.split("import hymet_tpu_torch")[0] + _IMPORT_EACH_ALONE
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
     env["PYTHONPATH"] = REPO
-    out = subprocess.run([sys.executable, "-c", code, *ALIGN_MODULES, *RUN_MODULES], cwd=REPO,
+    out = subprocess.run([sys.executable, "-c", code, *ALIGN_MODULES, *RUN_MODULES,
+                          *CLI_MODULES], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     return json.loads(out.stdout.strip().splitlines()[-1]), out.stderr
@@ -118,6 +126,15 @@ def test_align_module_imports_without_jax_or_reference_package(alone, module):
 def test_run_module_imports_without_jax_or_reference_package(alone, module):
     """Each module of the reference -> classify -> export slice and the
     run, imported alone with jax and hymet_tpu blocked, pulls in neither."""
+    codes, stderr = alone
+    assert codes[module] == 0, stderr
+
+
+@pytest.mark.parametrize("module", CLI_MODULES)
+def test_cli_module_imports_without_jax_or_reference_package(alone, module):
+    """Each module of the DB build and command-line slice, imported alone
+    with jax and hymet_tpu blocked, pulls in neither (the package's
+    ``__main__`` does not run when imported)."""
     codes, stderr = alone
     assert codes[module] == 0, stderr
 

@@ -141,8 +141,8 @@ def test_chip_smoke_counts_the_device_activities_of_a_call(monkeypatch):
     n = chip_smoke.PROFILED_CALLS
 
     def profiled(counts):
-        monkeypatch.setattr(chip_smoke, "profile_run",
-                            lambda fn: (fn(), {"device_ms": [[k, 0.1, c] for k, c in counts]})[1])
+        trace = {"device_ms": [[k, 0.1, c] for k, c in counts]}
+        monkeypatch.setattr(chip_smoke, "profile_run", lambda fn, **_kw: (fn(), trace)[1])
 
     map_batch = {"device_ms": [["ns::minimizer_tile_kernel(...)", 0.3, 16],
                                ["ns::minimizer_tail_kernel(...)", 0.1, 16]]}

@@ -3,7 +3,8 @@ CPU, on the world of tests/test_pipeline_e2e.py (seed 77: 3 genomes x 50
 kbp, 7 contigs) with the same RunConfig: every stage file byte for byte,
 the cached reference too; the reference cache and the resident aligner on
 a second run; the first-hit fallback for a data error and not for a
-kernel or CUDA error; the max_secondary check; what the port refuses."""
+kernel or CUDA error; the max_secondary check; the legacy classifier's
+run; what the port refuses."""
 
 import dataclasses
 import filecmp
@@ -184,12 +185,32 @@ def test_max_secondary_above_the_lca_ceiling_is_refused(world, runs, tmp_path, m
         run._stage_align(os.path.join(_cache_dir(run.cfg), "combined_genomes.fasta"))
 
 
-@pytest.mark.parametrize("field,value", [("db_shards", 2), ("classifier_backend", "legacy"),
-                                         ("classifier_backend", "nope")])
+@pytest.mark.parametrize("field,value", [("db_shards", 2), ("classifier_backend", "nope")])
 def test_unported_options_raise(field, value):
     cfg = TConfig(**{field: value})
     with pytest.raises(NotImplementedError if value != "nope" else ValueError):
         TRun(cfg, device="cpu")
+
+
+def test_legacy_run_matches_jax(world, runs, tmp_path):
+    """classifier_backend="legacy" (classification.py's classifier): both
+    packages' whole runs, on the caches of the first runs, write the same
+    stage files, and the classification is the legacy one."""
+    jrun, trun = runs
+    jcfg = _config(world, tmp_path / "jax")
+    jcfg.cache_root, jcfg.classifier_backend = jrun.cfg.cache_root, "legacy"
+    JRun(jcfg).execute()
+    tcfg = _tcfg(world, tmp_path / "torch", trun.cfg.cache_root)
+    tcfg.classifier_backend = "legacy"
+    run = TRun(tcfg, device="cpu")
+    run.execute()
+    assert not run.fallback_ran and "reference" not in run.timings
+    for name in ("work/selected_genomes.txt", "work/resultados.paf", "classified_sequences.tsv",
+                 "hymet.sample.cami.tsv"):
+        assert filecmp.cmp(os.path.join(tcfg.outdir, name), os.path.join(jcfg.outdir, name),
+                           shallow=False), name
+    assert not filecmp.cmp(os.path.join(tcfg.outdir, "classified_sequences.tsv"),
+                           os.path.join(trun.cfg.outdir, "classified_sequences.tsv"), shallow=False)
 
 
 def test_jax_backend_name_is_the_device_backend(world, runs, tmp_path):

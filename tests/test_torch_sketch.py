@@ -253,8 +253,14 @@ def test_sketchdb_roundtrip_and_concat(tmp_path):
     back = JDB.load(path)
     np.testing.assert_array_equal(back.hashes, merged_j.hashes)
     assert back.names == merged_j.names and back.k == merged_j.k
-    with pytest.raises(NotImplementedError):
-        load_sketch_db(str(tmp_path / "x.msh"))
+    # a .msh the JAX package wrote loads as the same DB
+    merged_j.to_msh(str(tmp_path / "m.msh"))
+    from_msh = load_sketch_db(str(tmp_path / "m.msh"))
+    np.testing.assert_array_equal(from_msh.hashes, merged_j.hashes)
+    np.testing.assert_array_equal(from_msh.n_hashes, merged_j.n_hashes)
+    np.testing.assert_array_equal(from_msh.lengths, merged_j.lengths)
+    assert (from_msh.k, from_msh.sketch_size, from_msh.names) == (merged_j.k, merged_j.sketch_size,
+                                                                  merged_j.names)
 
 
 @pytest.mark.parametrize("x,n,p", [(0, 10, 0.5), (3, 10, 0.0), (3, 10, 1.0), (7, 1000, 1e-3), (400, 1000, 0.37)])

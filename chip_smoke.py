@@ -21,9 +21,13 @@ Phases, each printed as one JSON line with its seconds:
              bound (see :func:`window_ops`), ``screen_count`` summed over
              one staged screen, with the survivors of the threshold; and
              ``bottom_sketch`` bit for bit on :func:`bottom_sketch_edge_sets`
-             (s = 1, 7, 1000 and above a tile and the windows; poly-A;
-             duplicates across tiles; an all-invalid row; a real PAD_HASH;
-             tile edges; pooled segments).
+             (s = 1, 7, 1000 and above a wave and the windows; poly-A;
+             duplicates across waves; an all-invalid row; a real PAD_HASH;
+             wave and chunk edges; pooled segments; descending keys; ties at
+             the s-th key; a sparse first chunk) and ``sketch_codes`` on
+             :func:`sketch_codes_edge_sets` (s = 1 .. 10,000 and above the
+             windows; poly-A, repeat, all-N and half-N rows; wave and chunk
+             edges; one row much longer; k = 15, 21, 31).
 4. slice   — contigs -> staged upload -> sketch screen -> candidate limit
              on the in-repo synthetic CAMI world (validation/work_cami_suite:
              sketch1-3 and the camisyn_gut contigs), three times: with the
@@ -103,15 +107,20 @@ Phases, each printed as one JSON line with its seconds:
              validation/work_cami_suite/genomes/ (each DB's files in its
              committed rows' order; 234 genomes, k = 21, s = 1000), as
              ``.npz`` and as ``.msh``, with every launch count set to 0
-             just before and read just after: ``kmer_hash`` and
-             ``bottom_sketch`` must be launched, and both files must equal
-             the committed sketch{1,2,3}.npz bit for bit (hashes, n_hashes,
-             lengths, names). Then each DB's build split (gunzip + parse +
-             encode, upload, kmer_hash, bottom_sketch), and on each build's
-             batches both kernels against their plain versions bit for bit,
-             timed with their bounds and, for ``bottom_sketch``, the library
-             call ``torch.unique``. Then ``cli.main(["run", ...])`` with the
-             three ``.msh`` DBs on phase 8's cache must write phase 8's
+             just before and read just after: ``sketch_codes`` must be
+             launched, and neither ``kmer_hash`` nor ``bottom_sketch``, and
+             both files must equal the committed sketch{1,2,3}.npz bit for
+             bit (hashes, n_hashes, lengths, names). Six genomes of sketch1 built again
+             under a window budget that puts each up in pieces must launch
+             ``bottom_sketch`` (the fold) and equal their committed rows.
+             Then each DB's build split (gunzip + parse + encode, upload,
+             sketch_codes) and peak device memory, and on each build's
+             batches ``sketch_codes`` and the earlier route's two kernels
+             (``kmer_hash``, then ``bottom_sketch`` on its hashes) against
+             their plain versions bit for bit, timed with their bounds and,
+             for ``bottom_sketch``, the library call ``torch.unique``.
+             Then ``cli.main(["run", ...])`` with the three ``.msh`` DBs
+             on phase 8's cache must write phase 8's
              ``classified_sequences.tsv`` and CAMI profile byte for byte,
              through every kernel of the run; and ``cli.main(["legacy",
              ...])`` on the same cache must write the legacy classifier's
@@ -174,7 +183,12 @@ WORLD = os.path.join(REPO, "validation", "work_cami_suite")
 CONTIGS = os.path.join(WORLD, "data", "camisyn_gut", "contigs.fna")
 GENOMES = os.path.join(WORLD, "genomes")
 DB_LABELS = ["sketch1", "sketch2", "sketch3"]
-DB_BUILD_KERNELS = ("kmer_hash", "bottom_sketch")  # the DB build's, not the run's
+# The DB build's kernels, not the run's: sketch_codes on every batch,
+# bottom_sketch on the pieces of a genome past the window budget. A run
+# launches neither, nor kmer_hash (the Pallas kernel's standalone
+# counterpart, which no path of the port calls).
+DB_BUILD_KERNELS = ("sketch_codes", "bottom_sketch")
+RUN_IDLE = ("kmer_hash", *DB_BUILD_KERNELS)
 
 # H100 SXM memory rate (NVIDIA data sheet) and 32-bit integer issue rates
 # per SM and clock (CUDA C++ Programming Guide, arithmetic instruction
@@ -512,6 +526,14 @@ def phase_kernel(seed: int, cfg: RunConfig, sms: int, clock_hz: float) -> dict:
         sketch_err = max(sketch_err, check_equal(f"bottom_sketch, {name}", got, want))
         sketch_cases.append([name, *h.shape, s, want[1].tolist()[:8]])
     cases["bottom_sketch"] = sketch_cases
+    codes_cases, codes_err = [], 0.0
+    for name, codes, k, s in sketch_codes_edge_sets(seed):
+        codes = torch.from_numpy(codes).cuda()
+        want = sketch_kernels.sketch_codes_torch(codes, k, s)
+        got = sketch_kernels.sketch_codes(codes, k, s)
+        codes_err = max(codes_err, check_equal(f"sketch_codes, {name}", got, want))
+        codes_cases.append([name, *codes.shape, k, s, want[1].tolist()[:8]])
+    cases["sketch_codes"] = codes_cases
     emit("kernel", t0, cases=cases, identical=True, sms=sms, clock_mhz=clock_hz / 1e6,
          kmer_hash={"shape": [MAIN_B, MAIN_L], "k": MAIN_K, "ms": hash_ms, "plain_ms": hash_plain_ms,
                     "bound_ms": hash_bound, "bound_by": hash_by,
@@ -526,6 +548,7 @@ def phase_kernel(seed: int, cfg: RunConfig, sms: int, clock_hz: float) -> dict:
                          "plain_ms": screen["plain_ms"], "bound_ms": screen["bound_ms"],
                          "bound_by": screen["bound_by"]},
         "bottom_sketch": {"max_abs_err": sketch_err},
+        "sketch_codes": {"max_abs_err": codes_err},
     }
 
 
@@ -786,7 +809,7 @@ def chain_bound_ms(batches, sms: int, clock_hz: float) -> tuple:
 
 def zero_launches() -> None:
     for fn in (hash_kernels.screen_count, hash_kernels.kmer_hashes, *align_kernels.KERNELS,
-               lca.weighted_lca, sketch_kernels.bottom_sketch):
+               lca.weighted_lca, sketch_kernels.bottom_sketch, sketch_kernels.sketch_codes):
         fn.launches = 0
 
 
@@ -794,7 +817,8 @@ def all_launches() -> dict:
     return {"screen_count": hash_kernels.screen_count.launches,
             "kmer_hash": hash_kernels.kmer_hashes.launches, **align_launches(),
             "lca": lca.weighted_lca.launches,
-            "bottom_sketch": sketch_kernels.bottom_sketch.launches}
+            "bottom_sketch": sketch_kernels.bottom_sketch.launches,
+            "sketch_codes": sketch_kernels.sketch_codes.launches}
 
 
 def align_launches() -> dict:
@@ -1641,7 +1665,7 @@ def phase_run(tmp: str) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t
     launches = all_launches()
-    missing = [k for k, n in launches.items() if n <= 0 and k not in DB_BUILD_KERNELS]
+    missing = [k for k, n in launches.items() if n <= 0 and k not in RUN_IDLE]
     if missing:
         raise AssertionError(f"kernels not launched by execute: {missing} ({launches})")
     if run.fallback_ran:
@@ -1716,19 +1740,26 @@ def phase_lca(seed: int, gut: dict, sms: int, clock_hz: float) -> dict:
     return stats
 
 
-SKETCH_TILE = 4096  # windows a block of csrc/bottom_sketch.cu sorts
+SKETCH_WAVE = 4096  # windows a block of csrc/bottom_sketch.cu takes at a time
+SKETCH_CHUNK = 16 * SKETCH_WAVE  # windows a chunk block owns
 
 
 def bottom_sketch_edge_sets(seed: int = 0) -> list:
     """Hash batches for ``bottom_sketch`` as (name, hash int64 [B, n], valid
     bool [B, n], s, segments): s = 1, 7 (not a power of two), 1000, above a
-    tile (5000) and above the windows; one value over three tiles (poly-A:
-    n = 1); a small pool of values repeated across tiles and rows; an
-    all-invalid row beside valid ones; a valid hash equal to PAD_HASH (-1),
-    and one that is invalid; n at the tile's edges (4095, 4096, 4097, 8193);
-    37 tiles in one row (merge rounds over odd list counts); pooled
-    segments of 2, 1 and 3 rows; and the values at the sign edge (0, -1,
-    INT64_MAX, INT64_MIN), whose order shows a signed compare."""
+    wave and the shared-memory lists (5000) and above the windows; one
+    value over three waves (poly-A: n = 1); a small pool of values
+    repeated across waves and rows; an all-invalid row beside valid ones; a
+    valid hash equal to PAD_HASH (-1), and one that is invalid; n at a
+    wave's edges (4095, 4096, 4097, 8193; and 4097 with every window kept)
+    and at a chunk's (65,535 .. 65,537, every window kept); 37 waves in one
+    row; pooled segments of 2, 1 and 3 rows; the values at the sign edge
+    (0, -1, INT64_MAX, INT64_MIN), whose order shows a signed compare; keys
+    in descending order over two chunks (each wave below the last: the
+    running threshold's worst case); a pool of 1100 values at s = 1000 (the
+    s-th key tied many times over); and a first chunk of 50 small keys
+    beside a full second one (a chunk of fewer than s keys publishes no
+    bound)."""
     rng = np.random.default_rng(seed)
 
     def rand(B, n):
@@ -1737,7 +1768,7 @@ def bottom_sketch_edge_sets(seed: int = 0) -> list:
     def dense(B, n, p=1.0):
         return rng.random((B, n)) < p
 
-    T = SKETCH_TILE
+    T, C = SKETCH_WAVE, SKETCH_CHUNK
     sets = [
         ("s=1", rand(4, 2 * T + 9), dense(4, 2 * T + 9, 0.5), 1, None),
         ("s=7", rand(3, T + 100), dense(3, T + 100, 0.9), 7, None),
@@ -1759,6 +1790,63 @@ def bottom_sketch_edge_sets(seed: int = 0) -> list:
     sets.append(("pad and invalid", h, v, 10_000, None))
     edge = np.array([[0, -1, 2**63 - 1, -(2**63), 1, -2, 5, 0]], np.int64)
     sets.append(("sign edges", edge, np.ones_like(edge, bool), 6, None))
+    sets.append(("n=4097, all kept", rand(2, T + 1), dense(2, T + 1, 0.99), 5000, None))
+    for n in (C - 1, C, C + 1):
+        sets.append((f"n={n}, all kept", rand(1, n), dense(1, n, 0.99), C + 10, None))
+    n = 2 * C + 999
+    keys = -(2**63) + (np.arange(n, 0, -1, dtype=np.int64) << 40)  # descending keys
+    sets.append(("descending", np.stack([keys, keys >> 3]) ^ np.int64(-(2**63)),
+                 dense(2, n, 0.98), 1000, None))
+    sets.append(("ties at the s-th key", rng.integers(0, 1100, (2, C + 3000)).astype(np.int64),
+                 dense(2, C + 3000, 0.9), 1000, None))
+    h, v = rand(1, C + 4000), dense(1, C + 4000)
+    v[0, 50:C] = False
+    h[0, :50] = np.arange(50)  # the row's 50 smallest hashes, alone in chunk 0
+    sets.append(("sparse first chunk", h, v, 1000, None))
+    return sets
+
+
+def sketch_codes_edge_sets(seed: int = 0) -> list:
+    """Code batches for ``sketch_codes`` as (name, codes uint8 [B, L], k,
+    s): s = 1, 7, 1000, 5000, 10,000 (lists in device memory) and above the
+    windows; a poly-A row and a low-complexity row (a 37-base repeat) with
+    fewer than s distinct keys, an all-N row and a half-N row beside random
+    ones; L at a wave's edges (4095 .. 4097 windows) and a chunk's (65,535
+    .. 65,537), every window kept; many short rows beside one much longer
+    (padded with N, as the DB build pads a batch); L a multiple of 16 (the
+    16-byte loads); N runs; k = 15, 21 and 31."""
+    rng = np.random.default_rng(seed)
+
+    def rand(B, L):
+        return rng.integers(0, 4, (B, L)).astype(np.uint8)
+
+    W, C = SKETCH_WAVE, SKETCH_CHUNK
+    mixed = rand(6, 9000)
+    mixed[0] = 0  # poly-A
+    mixed[1] = np.resize(rand(1, 37)[0], 9000)  # low complexity
+    mixed[2] = 4  # all N
+    mixed[3, ::2] = 4  # half N
+    mixed[4, 4000:4100] = 4
+    sets = [
+        ("s=1", rand(4, 5000), 21, 1),
+        ("s=7, k=15", rand(3, W + 100), 15, 7),
+        ("s=1000, k=31, N runs", codes_with_n_runs(rng, 3, 20_000), 31, 1000),
+        ("s=5000", rand(2, 30_000), 21, 5000),
+        ("s=10000, two chunks", rand(2, C + 4000), 21, 10_000),
+        ("s>windows", rand(3, 300), 21, 1000),
+        ("poly-A, repeat, all-N, half-N", mixed, 21, 1000),
+        ("poly-A, repeat, all-N, half-N, k=15", mixed, 15, 1000),
+        ("L%16=0", rand(2, 2 * W), 21, 500),
+    ]
+    for n in (W - 1, W, W + 1):
+        sets.append((f"n={n}, all kept", rand(2, n + 20), 21, W + 10))
+    for n in (C - 1, C, C + 1):
+        sets.append((f"n={n}, all kept", rand(1, n + 20), 21, C + 10))
+        sets.append((f"n={n}", rand(2, n + 20), 21, 1000))
+    long = np.full((40, 200_000), 4, np.uint8)
+    long[:, :2000] = rand(40, 2000)
+    long[7] = rand(1, 200_000)[0]
+    sets.append(("one row much longer", long, 21, 1000))
     return sets
 
 
@@ -1769,6 +1857,21 @@ def sketch_bound_ms(batches) -> tuple:
     once; bytes bound it (a selection does a few operations a window)."""
     nbytes = sum(9 * B * n + G * (8 * s + 4) for B, n, G, s in batches)
     return nbytes / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def sketch_codes_bound_ms(batches, k: int, sms: int, clock_hz: float) -> tuple:
+    """(least time in ms, what bounds it) for ``sketch_codes`` over batches
+    given as (B, L, valid windows, s): each code (1 B) read once, each row's
+    s hashes (8 B) and count (4 B) written once; every valid window hashed
+    (:func:`window_ops`, as ``kmer_hashes`` counts a window; an invalid
+    window needs no hash), and the selection's few operations a window not
+    counted."""
+    nbytes = sum(B * L + B * (8 * s + 4) for B, L, _v, s in batches)
+    alu, mad = window_ops(k, screen=False)
+    n = sum(v for _B, _L, v, _s in batches)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops_ms(n * alu, n * mad, sms, clock_hz)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def db_files(label: str) -> list:
@@ -1801,6 +1904,9 @@ def unique_pairs(h: torch.Tensor, v: torch.Tensor):
     return torch.stack([rows[v], (h ^ SIGN)[v]], dim=1)
 
 
+PIECE_WINDOWS = 300_000  # a window budget that puts every in-repo genome up in pieces
+
+
 def phase_db(tmp: str, sms: int, clock_hz: float) -> dict:
     t0 = time.perf_counter()
     os.environ["HYMET_PLATFORM"] = "cuda"
@@ -1819,27 +1925,52 @@ def phase_db(tmp: str, sms: int, clock_hz: float) -> dict:
             if rc != 0:
                 raise AssertionError(f"sketch {label}{ext} exited {rc}")
     launches = all_launches()
-    if min(launches[k] for k in DB_BUILD_KERNELS) <= 0:
-        raise AssertionError(f"the DB build did not launch both kernels: {launches}")
+    if launches["sketch_codes"] <= 0 or launches["kmer_hash"] or launches["bottom_sketch"]:
+        raise AssertionError(f"the DB build did not go through sketch_codes alone: {launches}")
     for label in DB_LABELS:
         for ext in (".npz", ".msh"):
             same_db(load_sketch_db(os.path.join(out_dir, label + ext)), committed[label],
                     f"{label}{ext}")
-    # the build's split, in a build of its own (its steps end in a synchronize)
+    # genomes past the window budget go up in pieces, folded by bottom_sketch
+    ref = committed["sketch1"]
+    with mock.patch.dict(sketchdb.BUILD_WINDOWS, cuda=PIECE_WINDOWS):
+        torch.cuda.synchronize()
+        zero_launches()
+        same_db(build_sketch_db(files["sketch1"][:6], 21, 1000, device="cuda"),
+                SketchDB(k=21, sketch_size=1000, hashes=ref.hashes[:6], n_hashes=ref.n_hashes[:6],
+                         names=ref.names[:6], lengths=ref.lengths[:6]), "sketch1[:6] in pieces")
+        pieces = all_launches()
+    if pieces["sketch_codes"] <= 0 or pieces["bottom_sketch"] <= 0 or pieces["kmer_hash"]:
+        raise AssertionError(f"the build in pieces did not fold through bottom_sketch: {pieces}")
+    # the build's split, in a build of its own (its steps end in a synchronize),
+    # and its peak device memory
     split = {}
     for label in DB_LABELS:
         timings = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         same_db(build_sketch_db(files[label], 21, 1000, device="cuda", timings=timings),
                 committed[label], f"{label} (timed build)")
-        split[label] = {"total_s": time.perf_counter() - t, **timings}
-    # both kernels on the build's batches: bit for bit, timed, bounded
-    stats = {"kmer_hash": {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0},
+        split[label] = {"total_s": time.perf_counter() - t, **timings,
+                        "peak_bytes": torch.cuda.max_memory_allocated()}
+    # on each build's batches: sketch_codes, and the earlier route's two
+    # kernels (kmer_hash, then bottom_sketch on its hashes), each bit for bit
+    # against its plain version, timed and bounded
+    stats = {"sketch_codes": {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0},
+             "kmer_hash": {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0},
              "bottom_sketch": {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}}
-    shapes, sketch_batches = [], []
+    shapes, sketch_batches, codes_batches = [], [], []
     for label in DB_LABELS:
         for codes in build_batches(files[label]):
             g = torch.from_numpy(codes).cuda()
+            c = stats["sketch_codes"]
+            want = sketch_kernels.sketch_codes_torch(g, 21, 1000)
+            c["max_abs_err"] = max(c["max_abs_err"], check_equal(
+                f"sketch_codes, {label}", sketch_kernels.sketch_codes(g, 21, 1000), want))
+            c["ms"] += cuda_ms(lambda: sketch_kernels.sketch_codes(g, 21, 1000), iters=10, warmup=2)
+            c["plain_ms"] += cuda_ms(lambda: sketch_kernels.sketch_codes_torch(g, 21, 1000),
+                                     iters=2, warmup=1)
             k = stats["kmer_hash"]
             k["max_abs_err"] = max(k["max_abs_err"], check_kernel(g, 21))
             k["ms"] += cuda_ms(lambda: hash_kernels.kmer_hashes(g, 21), iters=5, warmup=2)
@@ -1847,22 +1978,26 @@ def phase_db(tmp: str, sms: int, clock_hz: float) -> dict:
             h, v = hash_kernels.kmer_hashes(g, 21)
             b = stats["bottom_sketch"]
             got = sketch_kernels.bottom_sketch(h, v, 1000)
-            want = sketch_kernels.bottom_sketch_torch(h, v, 1000)
             b["max_abs_err"] = max(b["max_abs_err"], check_equal(f"bottom_sketch, {label}", got,
                                                                  want))
-            b["ms"] += cuda_ms(lambda: sketch_kernels.bottom_sketch(h, v, 1000), iters=5, warmup=2)
+            b["ms"] += cuda_ms(lambda: sketch_kernels.bottom_sketch(h, v, 1000), iters=10, warmup=2)
             b["plain_ms"] += cuda_ms(lambda: sketch_kernels.bottom_sketch_torch(h, v, 1000),
                                      iters=2, warmup=1)
             pairs = unique_pairs(h, v)
             b["library_ms"] += cuda_ms(lambda: torch.unique(pairs, dim=0, sorted=True),
                                        iters=2, warmup=1)
-            shapes.append([label, *codes.shape, int(v.sum())])
+            valid = int(v.sum())
+            shapes.append([label, *codes.shape, valid])
             sketch_batches.append((*h.shape, h.shape[0], 1000))
+            codes_batches.append((*codes.shape, valid, 1000))
             del g, h, v, pairs, got, want
+    stats["sketch_codes"]["bound_ms"], stats["sketch_codes"]["bound_by"] = sketch_codes_bound_ms(
+        codes_batches, 21, sms, clock_hz)
     stats["kmer_hash"]["bound_ms"], stats["kmer_hash"]["bound_by"] = hash_bound_ms(
         [(B, L) for _label, B, L, _v in shapes], 21, sms, clock_hz)
     stats["bottom_sketch"]["bound_ms"], stats["bottom_sketch"]["bound_by"] = sketch_bound_ms(
         sketch_batches)
+    earlier_route_ms = stats["kmer_hash"]["ms"] + stats["bottom_sketch"]["ms"]
     # the run and the legacy run, as a user types them, on the .msh DBs and
     # phase 8's cache
     cfg8 = run_config(tmp)
@@ -1885,7 +2020,7 @@ def phase_db(tmp: str, sms: int, clock_hz: float) -> dict:
         with open(os.path.join(out, "metadata.json")) as f:
             if json.load(f)["first_hit_fallback"]:
                 raise AssertionError(f"{cmd}: the first-hit fallback ran")
-    missing = [k for k, n in runs["run"]["launches"].items() if n <= 0 and k not in DB_BUILD_KERNELS]
+    missing = [k for k, n in runs["run"]["launches"].items() if n <= 0 and k not in RUN_IDLE]
     if missing:
         raise AssertionError(f"kernels not launched by the .msh run: {missing}")
     for name in ("classified_sequences.tsv", "hymet.contigs.cami.tsv"):
@@ -1903,12 +2038,15 @@ def phase_db(tmp: str, sms: int, clock_hz: float) -> dict:
         raise AssertionError("the legacy run's TSV is not the legacy classifier's")
     emit("db", t0, genomes=sum(len(f) for f in files.values()),
          bases=int(sum(committed[label].lengths.sum() for label in DB_LABELS)),
-         identical_to_committed=True, cli_sketch_s=cli_s, launches=launches, build_split=split,
+         identical_to_committed=True, cli_sketch_s=cli_s, launches=launches,
+         pieces_launches=pieces, build_split=split,
          batches=[["db", "rows", "L", "valid_windows"], *shapes], kernels=stats,
+         earlier_route_ms=earlier_route_ms,
          msh_run={"s": runs["run"]["s"], "launches": runs["run"]["launches"],
                   "identical_to_phase_8": True},
          legacy_run={"s": runs["legacy"]["s"], "classified": classified, "queries": total})
-    return {"launches": launches, **stats}
+    # bottom_sketch's launches are the build in pieces' (its only path)
+    return {"launches": {**launches, "bottom_sketch": pieces["bottom_sketch"]}, **stats}
 
 
 def main() -> int:
@@ -1949,9 +2087,18 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": [
         # the DB build's path (phase 10): its launches and its batches' times
+        {"name": "sketch_codes", "route": "cuda",
+         "source": "hymet_tpu_torch/csrc/bottom_sketch.cu",
+         "replaces": "hymet_tpu/ops/sketch.py:919 with hymet_tpu/ops/pallas_kernels.py:35 fused in",
+         "launches": db["launches"]["sketch_codes"], "main_path": True, **db["sketch_codes"],
+         "max_abs_err": max(db["sketch_codes"]["max_abs_err"],
+                            kernels["sketch_codes"]["max_abs_err"]),
+         "library_ms": None},
+        # the Pallas kernel's standalone counterpart: on no path (its times on
+        # the DB build's batches, the earlier route's first half)
         {"name": "kmer_hash", "route": "cuda", "source": "hymet_tpu_torch/csrc/kmer_hash.cu",
          "replaces": "hymet_tpu/ops/pallas_kernels.py:35",
-         "launches": db["launches"]["kmer_hash"], "main_path": True,
+         "launches": db["launches"]["kmer_hash"], "main_path": False,
          **db["kmer_hash"], "max_abs_err": max(db["kmer_hash"]["max_abs_err"],
                                                kernels["kmer_hash"]["max_abs_err"]),
          "library_ms": None},

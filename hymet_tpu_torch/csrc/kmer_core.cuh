@@ -42,6 +42,57 @@ constexpr int kBlockWindows = kRun * kThreads;
 // needed), as code words of 16 bases and as 16-bit mask words.
 constexpr int kSlabWords = kBlockWindows / 16 + 4;
 
+// Four code bytes -> their four 2-bit codes (& 3) in the low byte.
+__device__ __forceinline__ uint32_t pack4(uint32_t w) {
+  uint32_t x = w & 0x03030303u;
+  x |= x >> 6;
+  return (x & 0xFu) | ((x >> 12) & 0xF0u);
+}
+
+// Four code bytes -> four validity bits (code < 4).
+__device__ __forceinline__ uint32_t valid4(uint32_t w) {
+  uint32_t v = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v |= static_cast<uint32_t>(((w >> (8 * q)) & 0xFCu) == 0) << q;
+  return v;
+}
+
+// A slab of a row of L codes (0-3 = ACGT, >= 4 invalid), bases b0 ..
+// b0 + 16 * words - 1, as one code word and 16 validity bits a 16 bases;
+// past the row, code 4 (invalid). The block's threads share the words;
+// vec: the row may be read 16 bytes at a time (L % 16 == 0, aligned base).
+__device__ __forceinline__ void load_code_slab(const uint8_t* __restrict__ src, long long L,
+                                               long long b0, int words, bool vec,
+                                               uint32_t* code_slab, uint16_t* mask16) {
+  for (int i = threadIdx.x; i < words; i += blockDim.x) {
+    const long long p = b0 + 16LL * i;
+    uint32_t w[4];
+    if (vec && p + 16 <= L) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(src + p));
+      w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t x = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const long long pos = p + 4 * q + b;
+          x |= static_cast<uint32_t>(pos < L ? src[pos] : 4) << (8 * b);
+        }
+        w[q] = x;
+      }
+    }
+    uint32_t cw = 0, mw = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      cw |= pack4(w[q]) << (8 * q);
+      mw |= valid4(w[q]) << (4 * q);
+    }
+    code_slab[i] = cw;
+    mask16[i] = static_cast<uint16_t>(mw);
+  }
+}
+
 // Thread `tid`'s run out of the block's slab (bases kRun * tid ...): its
 // 64 validity bits, and its four code words.
 __device__ __forceinline__ uint64_t run_valid_bits(const uint16_t* mask16, int tid) {

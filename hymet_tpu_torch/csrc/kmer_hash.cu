@@ -30,21 +30,6 @@ namespace {
 
 using namespace hymet;
 
-// Four code bytes -> their four 2-bit codes (& 3) in the low byte.
-__device__ __forceinline__ uint32_t pack4(uint32_t w) {
-  uint32_t x = w & 0x03030303u;
-  x |= x >> 6;
-  return (x & 0xFu) | ((x >> 12) & 0xF0u);
-}
-
-// Four code bytes -> four validity bits (code < 4).
-__device__ __forceinline__ uint32_t valid4(uint32_t w) {
-  uint32_t v = 0;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) v |= static_cast<uint32_t>(((w >> (8 * q)) & 0xFCu) == 0) << q;
-  return v;
-}
-
 template <int NW>
 __global__ void __launch_bounds__(kThreads)
 kmer_hash_kernel(const uint8_t* __restrict__ codes, int64_t* __restrict__ hash,
@@ -60,33 +45,7 @@ kmer_hash_kernel(const uint8_t* __restrict__ codes, int64_t* __restrict__ hash,
 
   // 16 codes a step -> one code word and 16 validity bits; past the row,
   // code 4 (invalid)
-  for (int i = tid; i < kSlabWords; i += kThreads) {
-    const long long p = b0 + 16LL * i;
-    uint32_t w[4];
-    if (vec && p + 16 <= L) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(src + p));
-      w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        uint32_t x = 0;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const long long pos = p + 4 * q + b;
-          x |= static_cast<uint32_t>(pos < L ? src[pos] : 4) << (8 * b);
-        }
-        w[q] = x;
-      }
-    }
-    uint32_t cw = 0, mw = 0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      cw |= pack4(w[q]) << (8 * q);
-      mw |= valid4(w[q]) << (4 * q);
-    }
-    code_slab[i] = cw;
-    mask16[i] = static_cast<uint16_t>(mw);
-  }
+  load_code_slab(src, L, b0, kSlabWords, vec, code_slab, mask16);
   __syncthreads();
 
   const long long n = static_cast<long long>(L) - k + 1;

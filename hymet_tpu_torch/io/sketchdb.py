@@ -12,12 +12,12 @@ gives the JAX host build's arrays element for element. The host gunzips,
 parses and encodes the FASTA; each genome becomes one row of codes, its
 sequences joined by one N code (no window spans an N, so no k-mer spans
 two sequences, as in ``sketch_genome_file``); rows go up in batches under
-a window budget, sorted by length, and the card hashes every window
-(:func:`~hymet_tpu_torch.ops.hash_kernels.kmer_hashes`, the Pallas
-kernel's counterpart) and keeps each row's s smallest distinct hashes
-(:func:`~hymet_tpu_torch.ops.sketch_kernels.bottom_sketch`). A row longer
-than the budget goes up in pieces that overlap by k - 1 bases, their
-sketches merged by the same kernel.
+a window budget, sorted by length, and one kernel on the card hashes every
+window and keeps each row's s smallest distinct hashes
+(:func:`~hymet_tpu_torch.ops.sketch_kernels.sketch_codes`: codes in,
+sketches out, no hash written to device memory). A row longer than the
+budget goes up in pieces that overlap by k - 1 bases, their sketches
+folded by :func:`~hymet_tpu_torch.ops.sketch_kernels.bottom_sketch`.
 """
 
 from __future__ import annotations
@@ -31,15 +31,14 @@ import numpy as np
 import torch
 
 from hymet_tpu_torch.io.fasta import encode_seq, iter_fasta
-from hymet_tpu_torch.ops.hash_kernels import kmer_hashes
-from hymet_tpu_torch.ops.sketch_kernels import bottom_sketch
+from hymet_tpu_torch.ops.sketch_kernels import bottom_sketch, sketch_codes
 from hymet_tpu_torch.utils.device import resolve_device
 
 PAD_HASH = np.uint64(0xFFFFFFFFFFFFFFFF)
 
-# Windows a batch of the build holds, by device type; a window costs 10
-# bytes there (its code, hash and valid flag) and the sketch's candidate
-# lists about 20 bytes a window more at s >= 4096 (fewer below).
+# Windows a batch of the build holds, by device type; a window costs about
+# a byte there (its code) and the kernel's chunk lists 8 min(s, 65536)
+# bytes a 65,536 windows (0.12 bytes a window at s = 1000).
 BUILD_WINDOWS = {"cuda": 1 << 27, "cpu": 1 << 22}
 MAX_ROWS = 65535  # rows a batch may hold (the kernels' grid)
 
@@ -214,13 +213,11 @@ def _sketch_batch_rows(rows: List[np.ndarray], k: int, s: int, dev: torch.device
     t = time.perf_counter()
     codes = torch.from_numpy(pad_rows(rows)).to(dev)
     t = _add_time(timings, "upload_s", t, dev)
-    h, valid = kmer_hashes(codes, k)
-    t = _add_time(timings, "kmer_hash_s", t, dev)
-    out = bottom_sketch(h, valid, s)
-    _add_time(timings, "bottom_sketch_s", t, dev)
+    out = sketch_codes(codes, k, s)
+    _add_time(timings, "sketch_codes_s", t, dev)
     if timings is not None:
         timings["batches"] = timings.get("batches", 0) + 1
-        timings["windows"] = timings.get("windows", 0) + int(valid.numel())
+        timings["windows"] = timings.get("windows", 0) + codes.shape[0] * (codes.shape[1] - k + 1)
     return out
 
 
@@ -252,8 +249,9 @@ def sketch_rows(rows: Iterable[np.ndarray], k: int, s: int, device="cuda",
     Rows are read in groups of about one batch of windows and batched
     longest first. With a `timings` dict, each step's seconds are added to
     it (``read_s`` for pulling rows from `rows` — gunzip, parse, encode —
-    and ``upload_s``, ``kmer_hash_s``, ``bottom_sketch_s``, each ending in
-    a synchronize), with the ``batches`` and ``windows``."""
+    and ``upload_s``, ``sketch_codes_s`` and, for rows that go up in
+    pieces, ``bottom_sketch_s``, each ending in a synchronize), with the
+    ``batches`` and ``windows``."""
     dev = resolve_device(device)
     budget = BUILD_WINDOWS[dev.type]
     hashes: List[np.ndarray] = []

@@ -6,13 +6,15 @@ Counterpart of ``hymet_tpu/ops/pallas_kernels.py``:
   path: one staged batch, 2-bit packed, unpacked, hashed, filtered and
   counted in one kernel;
 - :func:`kmer_hashes` (``csrc/kmer_hash.cu``) — the hash of every window
-  of a code batch, the direct counterpart of ``kmer_hashes_pallas``.
+  of a code batch, the direct counterpart of ``kmer_hashes_pallas`` (no
+  path of the port calls it: the DB build hashes inside
+  :func:`~hymet_tpu_torch.ops.sketch_kernels.sketch_codes`).
 
-Both build on ``csrc/kmer_core.cuh``. The align stage's kernels
-(:mod:`hymet_tpu_torch.ops.align_kernels`), the weighted LCA
-(:mod:`hymet_tpu_torch.ops.lca`) and the DB build's bottom-s sketch
-(:mod:`hymet_tpu_torch.ops.sketch_kernels`) live in the same library. The
-``.cu`` sources are compiled at first use — never at import — one nvcc a
+Both build on ``csrc/kmer_core.cuh``, as does the DB build's bottom-s
+sketch (:mod:`hymet_tpu_torch.ops.sketch_kernels`). The align stage's
+kernels (:mod:`hymet_tpu_torch.ops.align_kernels`), the weighted LCA
+(:mod:`hymet_tpu_torch.ops.lca`) and the sketch live in the same library.
+The ``.cu`` sources are compiled at first use — never at import — one nvcc a
 source, all started together (the build runs inside chip_smoke.py's time
 limit, and side by side it takes about the time of the slowest source),
 and linked into one shared library with a plain C interface, bound with
@@ -80,7 +82,9 @@ class KernelLibrary:
             (lib.chains_launch, [_P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _P]),
             (lib.lca_launch, [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
             (lib.bottom_sketch_launch,
-             [_P, _P, _I, _LL, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]),
+             [_P, _P, _I, _LL, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
+            (lib.sketch_codes_launch,
+             [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
         ):
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -30,9 +30,9 @@ import torch
 
 from hymet_tpu_torch.io.fasta import pack_code_batch
 from hymet_tpu_torch.io.sketchdb import SketchDB
-from hymet_tpu_torch.ops.hash_kernels import kmer_hashes, screen_count
+from hymet_tpu_torch.ops.hash_kernels import screen_count
 from hymet_tpu_torch.ops.hashing import SIGN
-from hymet_tpu_torch.ops.sketch_kernels import bottom_sketch
+from hymet_tpu_torch.ops.sketch_kernels import sketch_codes
 from hymet_tpu_torch.utils.device import resolve_device
 
 # (packed, mask, L, k, flat, t, counts, total) -> None, as screen_count
@@ -280,16 +280,11 @@ def sketch_batch(codes: torch.Tensor, k: int, s: int) -> Tuple[torch.Tensor, tor
     """Bottom-s distinct-hash sketch per row of a [B, L] uint8 code batch
     (counterpart of ``hymet_tpu.ops.sketch.sketch_batch``): (hashes int64
     [B, s], uint64 bit patterns ascending in uint64 order, -1 past the
-    count; n int32 [B]). Through :func:`~hymet_tpu_torch.ops.hash_kernels.
-    kmer_hashes` and :func:`~hymet_tpu_torch.ops.sketch_kernels.bottom_sketch`,
-    the hand-written kernels for a CUDA batch.
+    count; n int32 [B]). Through
+    :func:`~hymet_tpu_torch.ops.sketch_kernels.sketch_codes`, the
+    hand-written kernel for a CUDA batch.
 
     The JAX function returns (hi, lo) uint32 limbs and, past n, duplicate
     hashes before any padding; the two agree on ``[:n]`` and n. A row
     shorter than k has no window: n = 0."""
-    B, L = codes.shape
-    if L < k:
-        return (torch.full((B, s), -1, dtype=torch.int64, device=codes.device),
-                torch.zeros(B, dtype=torch.int32, device=codes.device))
-    h, valid = kmer_hashes(codes, k)
-    return bottom_sketch(h, valid, s)
+    return sketch_codes(codes, k, s)

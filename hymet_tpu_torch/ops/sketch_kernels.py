@@ -1,15 +1,23 @@
-"""Bottom-s distinct sketch: the hand-written CUDA kernel, its wrapper and
-its plain PyTorch version.
+"""Bottom-s distinct sketch: the hand-written CUDA kernel, its two wrappers
+and their plain PyTorch versions.
 
-Counterpart of the selection in ``hymet_tpu/ops/sketch.py::sketch_batch``
-(:919; B10) and of the host build's ``bottom_sketch_from_hashes``
-(``hymet_tpu/io/sketchdb.py:178``): for each segment of a [B, n] batch of
-window hashes (a row, or a run of consecutive rows pooled), the s
-smallest *distinct* valid hashes in uint64 order, ``PAD_HASH`` padded, and
-their count ``min(#distinct, s)``. torch has no "s smallest distinct"
-primitive short of sorting every window, so the card runs
-``csrc/bottom_sketch.cu`` (tiles sorted in shared memory, then sorted
-candidate lists merged pairwise in rounds).
+Counterpart of ``hymet_tpu/ops/sketch.py::sketch_batch`` (:919; B10) and
+of the host build's ``bottom_sketch_from_hashes``
+(``hymet_tpu/io/sketchdb.py:178``): for each segment of a batch of k-mer
+windows (a row, or a run of consecutive rows pooled), the s smallest
+*distinct* valid hashes in uint64 order, ``PAD_HASH`` padded, and their
+count ``min(#distinct, s)``.
+
+- :func:`sketch_codes` takes code rows and hashes their windows inside
+  the kernel (the DB build's path: no hash reaches device memory);
+- :func:`bottom_sketch` takes window hashes and valid flags (the fold of
+  a long genome's pieces).
+
+torch has no "s smallest distinct" primitive short of sorting every
+window, so the card runs ``csrc/bottom_sketch.cu``: a block a chunk of
+65,536 windows of a row keeps only the windows at or below its running
+s-th key, sorts those and merges them into its list; one block a segment
+folds the chunks' lists.
 
 A real hash equal to ``PAD_HASH`` counts like any other, as ``np.unique``
 counts it in the host build; the JAX ``sketch_batch`` takes it for
@@ -23,10 +31,12 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from hymet_tpu_torch.ops.hash_kernels import _check_device, _launch
-from hymet_tpu_torch.ops.hashing import SIGN
+from hymet_tpu_torch.ops.hash_kernels import _check_device, _launch, _vec
+from hymet_tpu_torch.ops.hashing import SIGN, kmer_hashes_torch
 
-TILE = 4096  # windows a block of csrc/bottom_sketch.cu sorts (kTile)
+CHUNK = 16 * 4096  # windows a chunk block of csrc/bottom_sketch.cu owns (kChunk)
+SHARED_CAP = 4096  # the longest list a block keeps in shared memory (kSharedCap)
+MAX_KEY = 2**63 - 1  # the largest key (PAD_HASH ^ SIGN): no bound yet
 
 
 def _segment_rows(B: int, segments: Optional[Sequence[int]]) -> np.ndarray:
@@ -38,6 +48,11 @@ def _segment_rows(B: int, segments: Optional[Sequence[int]]) -> np.ndarray:
     return rows
 
 
+def _empty(G: int, s: int, dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (torch.full((G, s), -1, dtype=torch.int64, device=dev),
+            torch.zeros(G, dtype=torch.int32, device=dev))
+
+
 def bottom_sketch_torch(
     hash_: torch.Tensor, valid: torch.Tensor, s: int, segments: Optional[Sequence[int]] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -46,8 +61,7 @@ def bottom_sketch_torch(
     hashes. Runs on whatever device the tensors lie on."""
     B = hash_.shape[0]
     rows = _segment_rows(B, segments)
-    out = torch.full((len(rows), s), -1, dtype=torch.int64, device=hash_.device)
-    count = torch.zeros(len(rows), dtype=torch.int32, device=hash_.device)
+    out, count = _empty(len(rows), s, hash_.device)
     start = 0
     for g, r in enumerate(rows.tolist()):
         keys = torch.unique(hash_[start : start + r][valid[start : start + r]] ^ SIGN, sorted=True)
@@ -56,6 +70,41 @@ def bottom_sketch_torch(
         count[g] = m
         start += r
     return out, count
+
+
+def sketch_codes_torch(codes: torch.Tensor, k: int, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`sketch_codes`: every window's hash
+    (:func:`~hymet_tpu_torch.ops.hashing.kmer_hashes_torch`), then
+    :func:`bottom_sketch_torch` of each row. A row shorter than k has no
+    window: count 0. Runs on whatever device `codes` lies on."""
+    B, L = codes.shape
+    if L < k:
+        return _empty(B, s, codes.device)
+    h, valid = kmer_hashes_torch(codes, k)
+    return bottom_sketch_torch(h, valid, s)
+
+
+def _lists(B: int, n: int, s: int, G: int, seg_windows: int, dev: torch.device) -> tuple:
+    """Chunks a row, the two list rooms and the kernel's buffers: chunk
+    lists and counts, each segment's bound (``MAX_KEY``: none yet), and
+    scratch for the lists that do not fit in shared memory."""
+    cpr = -(-n // CHUNK)
+    if cpr > 65535:  # the grid's second dimension
+        raise ValueError(f"bottom_sketch: {n} windows a row exceed the kernel's grid; "
+                         f"cut the rows")
+    cap0, cap = min(s, CHUNK), min(s, seg_windows)
+    chunks = B * cpr
+    lists = torch.empty(chunks * cap0, dtype=torch.int64, device=dev)
+    counts = torch.empty(chunks, dtype=torch.int32, device=dev)
+    seg_tau = torch.full((G,), MAX_KEY, dtype=torch.int64, device=dev)
+    work = max(chunks * cap0 if cap0 > SHARED_CAP else 0, G * cap if cap > SHARED_CAP else 0)
+    work = torch.empty(max(work, 1), dtype=torch.int64, device=dev)
+    return cpr, cap0, cap, lists, counts, seg_tau, work
+
+
+def _check_s(name: str, s: int) -> None:
+    if not 1 <= s < 2**31:
+        raise ValueError(f"{name}: s must be in 1..2^31-1, got {s}")
 
 
 def bottom_sketch(
@@ -67,9 +116,8 @@ def bottom_sketch(
     valid hashes in uint64 order, -1 (``PAD_HASH``) past the count.
 
     A CUDA batch goes to the hand-written kernel (counted in
-    ``bottom_sketch.launches``, one a call: a tile pass, the merge rounds
-    and the write-out on one stream); a CPU batch to
-    :func:`bottom_sketch_torch`."""
+    ``bottom_sketch.launches``, one a call: the chunk pass and the fold on
+    one stream); a CPU batch to :func:`bottom_sketch_torch`."""
     if _check_device("bottom_sketch", hash_, valid) == "cpu":
         return bottom_sketch_torch(hash_, valid, s, segments)
     if hash_.dtype != torch.int64 or valid.dtype != torch.bool or hash_.dim() != 2 \
@@ -82,38 +130,66 @@ def bottom_sketch(
     B, n = hash_.shape
     if not 1 <= B <= 65535:
         raise ValueError(f"bottom_sketch: B must be in 1..65535, got {B}")
-    if not 1 <= s < 2**31:
-        raise ValueError(f"bottom_sketch: s must be in 1..2^31-1, got {s}")
+    _check_s("bottom_sketch", s)
     rows = _segment_rows(B, segments)
     dev = hash_.device
     G = len(rows)
+    if n == 0:  # no window: every segment is empty
+        return _empty(G, s, dev)
+    cpr, cap0, cap, lists, counts, seg_tau, work = _lists(B, n, s, G, int(rows.max()) * n, dev)
+    first_row = torch.from_numpy(np.concatenate([[0], np.cumsum(rows)]).astype(np.int32)).to(dev)
+    row_group = torch.from_numpy(np.repeat(np.arange(G, dtype=np.int32), rows)).to(dev)
     out = torch.empty((G, s), dtype=torch.int64, device=dev)
     count = torch.empty(G, dtype=torch.int32, device=dev)
-    if n == 0:  # no window: every segment is empty
-        out.fill_(-1)
-        count.zero_()
-        return out, count
-    tpr = -(-n // TILE)
-    c0 = min(s, TILE)
-    leaves = B * tpr
-    if leaves >= 2**31:
-        raise ValueError(f"bottom_sketch: {leaves} tiles exceed the kernel's indices; "
-                         f"cut the batch")
-    first_row = np.concatenate([[0], np.cumsum(rows)])
-    lstart = torch.from_numpy((first_row * tpr).astype(np.int32)).to(dev)
-    row_group = torch.from_numpy(np.repeat(np.arange(G, dtype=np.int32), rows)).to(dev)
-    rounds = (int(rows.max()) * tpr - 1).bit_length()  # ceil(log2(a segment's most leaves))
-    buf0 = torch.empty(leaves * c0, dtype=torch.int64, device=dev)
-    buf1 = torch.empty_like(buf0) if rounds else buf0
-    cnt0 = torch.empty(leaves, dtype=torch.int32, device=dev)
-    cnt1 = torch.empty_like(cnt0) if rounds else cnt0
-    drops = torch.empty(leaves * c0 if rounds else 1, dtype=torch.int32, device=dev)
     _launch("bottom_sketch", dev, hash_.data_ptr(), valid.data_ptr(), B, n,
-            row_group.data_ptr(), lstart.data_ptr(), G, tpr, c0, s, rounds, buf0.data_ptr(),
-            buf1.data_ptr(), cnt0.data_ptr(), cnt1.data_ptr(), drops.data_ptr(),
-            out.data_ptr(), count.data_ptr())
+            row_group.data_ptr(), first_row.data_ptr(), G, s, cpr, cap0, cap, lists.data_ptr(),
+            counts.data_ptr(), seg_tau.data_ptr(), work.data_ptr(), out.data_ptr(),
+            count.data_ptr())
     bottom_sketch.launches += 1
     return out, count
 
 
 bottom_sketch.launches = 0
+
+
+def sketch_codes(codes: torch.Tensor, k: int, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """codes uint8 [B, L] (0-3 = ACGT, >= 4 invalid) -> (sketch int64 [B, s],
+    count int32 [B]): each row's s smallest distinct valid canonical k-mer
+    hashes (MurmurHash3_x64_128 h1, seed 42, as Mash hashes them) in uint64
+    order, -1 (``PAD_HASH``) past the count. The same function as
+    :func:`~hymet_tpu_torch.ops.hash_kernels.kmer_hashes` followed by
+    :func:`bottom_sketch`; a row shorter than k has count 0.
+
+    A CUDA batch goes to the hand-written kernel, which hashes each window
+    in registers (counted in ``sketch_codes.launches``, one a call); a CPU
+    batch to :func:`sketch_codes_torch`."""
+    if _check_device("sketch_codes", codes) == "cpu":
+        return sketch_codes_torch(codes, k, s)
+    if codes.dtype != torch.uint8 or codes.dim() != 2:
+        raise ValueError(f"sketch_codes: need a [B, L] uint8 tensor, got {codes.dtype} "
+                         f"{tuple(codes.shape)}")
+    if not codes.is_contiguous():
+        raise ValueError("sketch_codes: codes must be contiguous")
+    if not 1 <= k <= 32:
+        raise ValueError(f"sketch_codes: k must be in 1..32, got {k}")
+    _check_s("sketch_codes", s)
+    B, L = codes.shape
+    if not 1 <= B <= 65535:
+        raise ValueError(f"sketch_codes: B must be in 1..65535, got {B}")
+    if L >= 2**31:
+        raise ValueError(f"sketch_codes: L must be below 2^31, got {L}")
+    dev = codes.device
+    if L < k:  # no window
+        return _empty(B, s, dev)
+    n = L - k + 1
+    cpr, cap0, cap, lists, counts, seg_tau, work = _lists(B, n, s, B, n, dev)
+    out = torch.empty((B, s), dtype=torch.int64, device=dev)
+    count = torch.empty(B, dtype=torch.int32, device=dev)
+    _launch("sketch_codes", dev, codes.data_ptr(), B, L, k, _vec(codes, width=L), s, cpr, cap0,
+            cap, lists.data_ptr(), counts.data_ptr(), seg_tau.data_ptr(), work.data_ptr(),
+            out.data_ptr(), count.data_ptr())
+    sketch_codes.launches += 1
+    return out, count
+
+
+sketch_codes.launches = 0

@@ -477,7 +477,7 @@ def test_execute_on_card_matches_cpu(tmp_path):
 
 
 # ----------------------------------------------------------------------
-# the DB build: bottom_sketch, sketch_batch, build_sketch_db
+# the DB build: bottom_sketch, sketch_codes, sketch_batch, build_sketch_db
 
 SKETCH_SETS = {name: rest for name, *rest in chip_smoke.bottom_sketch_edge_sets(0)}
 
@@ -485,11 +485,12 @@ SKETCH_SETS = {name: rest for name, *rest in chip_smoke.bottom_sketch_edge_sets(
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", list(SKETCH_SETS))
 def test_bottom_sketch_kernel_matches_plain(name):
-    """chip_smoke.bottom_sketch_edge_sets: s = 1, 7, 1000, above a tile and
-    above the windows; poly-A; duplicates across tiles; an all-invalid row;
-    a real PAD_HASH; the tile's edges; 37 tiles; pooled segments; the sign
-    edge. Sketches and counts equal the plain version's, one launch a
-    call."""
+    """chip_smoke.bottom_sketch_edge_sets: s = 1, 7, 1000, above a wave and
+    above the windows; poly-A; duplicates across waves; an all-invalid row;
+    a real PAD_HASH; a wave's and a chunk's edges; 37 waves; pooled
+    segments; the sign edge; descending keys; ties at the s-th key; a
+    sparse first chunk. Sketches and counts equal the plain version's, one
+    launch a call."""
     _need_card()
     from hymet_tpu_torch.ops import sketch_kernels
 
@@ -501,6 +502,45 @@ def test_bottom_sketch_kernel_matches_plain(name):
     torch.cuda.synchronize()
     assert sketch_kernels.bottom_sketch.launches == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+CODES_SETS = {name: rest for name, *rest in chip_smoke.sketch_codes_edge_sets(0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CODES_SETS))
+def test_sketch_codes_kernel_matches_plain(name):
+    """chip_smoke.sketch_codes_edge_sets: s = 1, 7, 1000, 5000, 10,000 and
+    above the windows; poly-A, a repeat, all-N and half-N rows; L at a
+    wave's and a chunk's edges; one row much longer than the rest; k = 15,
+    21, 31. Sketches and counts equal the plain version's, one launch a
+    call, no kmer_hash launch."""
+    _need_card()
+    from hymet_tpu_torch.ops import sketch_kernels
+
+    codes, k, s = CODES_SETS[name]
+    codes = torch.from_numpy(codes).cuda()
+    before = (sketch_kernels.sketch_codes.launches, hash_kernels.kmer_hashes.launches)
+    got = sketch_kernels.sketch_codes(codes, k, s)
+    want = sketch_kernels.sketch_codes_torch(codes, k, s)
+    torch.cuda.synchronize()
+    assert (sketch_kernels.sketch_codes.launches, hash_kernels.kmer_hashes.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_sketch_codes_kernel_refuses_what_it_does_not_take():
+    _need_card()
+    from hymet_tpu_torch.ops import sketch_kernels
+
+    before = sketch_kernels.sketch_codes.launches
+    codes = torch.zeros((2, 64), dtype=torch.uint8, device="cuda")
+    for args in ((codes.int(), 21, 5), (codes[0], 21, 5), (codes[:, ::2], 21, 5), (codes, 0, 5),
+                 (codes, 33, 5), (codes, 21, 0), (codes, 21, 2**31)):
+        with pytest.raises(ValueError):
+            sketch_kernels.sketch_codes(*args)
+    assert sketch_kernels.sketch_codes.launches == before
 
 
 @pytest.mark.gpu
@@ -539,8 +579,9 @@ def test_sketch_batch_on_card_matches_cpu(B, L, k, s):
 @pytest.mark.gpu
 def test_build_sketch_db_on_card_equals_committed(tmp_path):
     """sketch1 rebuilt on the card from its 78 genome files equals the
-    committed sketch1.npz bit for bit, and again with a window budget that
-    puts every genome up in pieces merged by the kernel."""
+    committed sketch1.npz bit for bit through sketch_codes alone (no
+    kmer_hash launch), and again with a window budget that puts every
+    genome up in pieces folded by bottom_sketch."""
     _need_card()
     from hymet_tpu_torch.io import sketchdb
 
@@ -548,12 +589,19 @@ def test_build_sketch_db_on_card_equals_committed(tmp_path):
     files = chip_smoke.db_files("sketch1")
     from hymet_tpu_torch.ops import sketch_kernels
 
-    before = (hash_kernels.kmer_hashes.launches, sketch_kernels.bottom_sketch.launches)
+    def launches():
+        return (sketch_kernels.sketch_codes.launches, hash_kernels.kmer_hashes.launches,
+                sketch_kernels.bottom_sketch.launches)
+
+    before = launches()
     chip_smoke.same_db(sketchdb.build_sketch_db(files, 21, 1000, device="cuda"), want, "sketch1")
-    assert hash_kernels.kmer_hashes.launches > before[0]
-    assert sketch_kernels.bottom_sketch.launches > before[1]
+    after = launches()
+    # the fused kernel, and neither kmer_hash nor a fold (no genome in pieces)
+    assert after[0] > before[0] and after[1:] == before[1:]
     with mock.patch.dict(sketchdb.BUILD_WINDOWS, cuda=300_000):
         chip_smoke.same_db(sketchdb.build_sketch_db(files[:6], 21, 1000, device="cuda"),
                            sketchdb.SketchDB(k=21, sketch_size=1000, hashes=want.hashes[:6],
                                              n_hashes=want.n_hashes[:6], names=want.names[:6],
                                              lengths=want.lengths[:6]), "sketch1[:6] in pieces")
+    pieces = launches()
+    assert pieces[0] > after[0] and pieces[1] == after[1] and pieces[2] > after[2]

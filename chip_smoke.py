@@ -125,6 +125,25 @@ Phases, each printed as one JSON line with its seconds:
              through every kernel of the run; and ``cli.main(["legacy",
              ...])`` on the same cache must write the legacy classifier's
              TSV of its own PAF.
+11. eval    — the evaluator as a user calls it, on phase 8's run of the gut
+             sample: ``cli.main(["eval", ...])`` with its CAMI profile,
+             ``classified_sequences.tsv``, ``resultados.paf`` and the
+             cache's ``detailed_taxonomy.tsv`` against the committed truth
+             (contigs paired by name: no aligner kernel may be launched);
+             then against a second assembly of the sample made in the
+             temporary directory (:func:`second_assembly`: all 1000 contigs
+             renamed, odd ones reverse-complemented, even ones cut at both
+             ends), where names and MD5s pair nothing and the contig remap
+             builds a 1000-contig truth index on the card and maps the 1000
+             contigs unstaged, with every launch count set to 0 just before
+             and read just after: ``minimizers`` at least once a map group
+             and an index batch, ``anchors`` and ``chains`` once a group;
+             every pair the contig's own counterpart; ``contigs_exact.tsv``
+             and ``contigs_per_rank.tsv`` byte-identical to the same remap
+             with the plain versions (MinimizerAligner's ``ops`` default
+             swapped); the pair count and the remap's seconds (index build,
+             map, the rest). Then ``testdataset`` on the in-repo genomes and
+             ``subset`` of the gut contigs, with their counts (host code).
 
 Then the card's name and power limit as nvidia-smi prints them, one JSON
 line with the kernels' numbers, and as the last line
@@ -152,13 +171,14 @@ import numpy as np
 import torch
 
 from hymet_tpu_torch import cli
+from hymet_tpu_torch.evalx import eval_cami
 from hymet_tpu_torch.io import sketchdb
 from hymet_tpu_torch.io.fasta import encode_seq, iter_fasta, pack_code_batch, read_fasta
 from hymet_tpu_torch.io.minimizer_index import MinimizerIndex, _row_batches
 from hymet_tpu_torch.io.paf import parse_paf_for_classification
 from hymet_tpu_torch.io.sketchdb import SketchDB, build_sketch_db, load_sketch_db
 from hymet_tpu_torch.models.legacy_lca import classify_paf_legacy
-from hymet_tpu_torch.models.aligner import AlignerConfig, MinimizerAligner
+from hymet_tpu_torch.models.aligner import AlignerConfig, MinimizerAligner, plan_query_groups
 from hymet_tpu_torch.models.weighted_lca import (
     classify_paf,
     lca_inputs,
@@ -180,7 +200,8 @@ from hymet_tpu_torch.utils.config import RunConfig
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORLD = os.path.join(REPO, "validation", "work_cami_suite")
-CONTIGS = os.path.join(WORLD, "data", "camisyn_gut", "contigs.fna")
+GUT = os.path.join(WORLD, "data", "camisyn_gut")
+CONTIGS = os.path.join(GUT, "contigs.fna")
 GENOMES = os.path.join(WORLD, "genomes")
 DB_LABELS = ["sketch1", "sketch2", "sketch3"]
 # The DB build's kernels, not the run's: sketch_codes on every batch,
@@ -2049,6 +2070,172 @@ def phase_db(tmp: str, sms: int, clock_hz: float) -> dict:
     return {"launches": {**launches, "bottom_sketch": pieces["bottom_sketch"]}, **stats}
 
 
+COMPLEMENT = bytes.maketrans(b"ACGTacgtN", b"TGCAtgcaN")
+
+
+def second_assembly(names, seqs, taxids: dict, fasta: str, table: str) -> list:
+    """The contigs as another assembly of the same sample would give them:
+    renamed asm2_<i>, odd ones reverse-complemented, even ones cut by
+    max(1, len // 200) bases at each end; written to `fasta`, with a truth
+    table `table` that gives each new name its source contig's taxid in
+    `taxids`. Returns the new names."""
+    new = [f"asm2_{i}" for i in range(len(seqs))]
+    with open(fasta, "w") as f:
+        for i, (name, seq) in enumerate(zip(new, seqs)):
+            if i % 2:
+                seq = seq.translate(COMPLEMENT)[::-1]
+            else:
+                cut = max(1, len(seq) // 200)
+                seq = seq[cut:-cut]
+            f.write(f">{name}\n{seq.decode()}\n")
+    with open(table, "w") as f:
+        f.write("contig_id\ttaxid\n")
+        f.writelines(f"{m}\t{taxids[n]}\n" for m, n in zip(new, names))
+    return new
+
+
+def timed(log: dict, key: str, fn):
+    """fn, adding its seconds (between two synchronizes) to log[key] and
+    its result to log[key + "_out"]."""
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        log[key] = log.get(key, 0.0) + time.perf_counter() - t
+        log[key + "_out"] = out
+        return out
+    return run
+
+
+def read_rows(path: str) -> list:
+    with open(path, newline="") as f:
+        return [ln.rstrip("\r\n").split("\t") for ln in f][1:]
+
+
+def eval_cli(argv: list, out: str, log: dict) -> dict:
+    """cli.main(["eval", *argv]) with the remap, its index build and its
+    map timed into `log`; its launches, counted from 0."""
+    torch.cuda.synchronize()
+    zero_launches()
+    with mock.patch.object(eval_cami, "_contig_remap",
+                           timed(log, "remap_s", eval_cami._contig_remap)), \
+         mock.patch.object(MinimizerIndex, "build_from_fasta",
+                           staticmethod(timed(log, "index_s", MinimizerIndex.build_from_fasta))), \
+         mock.patch.object(MinimizerAligner, "map_batch",
+                           timed(log, "map_s", MinimizerAligner.map_batch)):
+        t = time.perf_counter()
+        rc = cli.main(["eval", *argv, "--out", out])
+        torch.cuda.synchronize()
+        log["eval_s"] = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"eval into {out} exited {rc}")
+    return align_launches()
+
+
+def unpaired(records, counterpart: dict, pairs: dict, min_cov: float = 0.95,
+             min_id: float = 0.95) -> dict:
+    """Why the remap left contigs unpaired: each one's best record (by
+    nmatch) on its own counterpart failed the identity bound (nmatch /
+    blocklen, ROADMAP C8), the coverage bound, or there was none; with the
+    range of the identity failures' coverage and identity."""
+    best = {}
+    for r in records:
+        if r.qname not in pairs and r.tname == counterpart[r.qname]:
+            if r.qname not in best or r.nmatch > best[r.qname].nmatch:
+                best[r.qname] = r
+    cov = {q: (r.qend - r.qstart) / r.qlen for q, r in best.items()}
+    ident = {q: r.nmatch / r.blocklen for q, r in best.items()}
+    by_id = [q for q in best if cov[q] >= min_cov and ident[q] < min_id]
+    return {"identity": len(by_id), "coverage": sum(1 for q in best if cov[q] < min_cov),
+            "no_record": len(counterpart) - len(pairs) - len(best),
+            "identity_fail_cov": [min(map(cov.get, by_id), default=None),
+                                  max(map(cov.get, by_id), default=None)],
+            "identity_fail_id": [min(map(ident.get, by_id), default=None),
+                                 max(map(ident.get, by_id), default=None)]}
+
+
+def phase_eval(tmp: str, seed: int) -> None:
+    """Phase 11: eval on phase 8's run, by name and by a remap against a
+    second assembly; then testdataset and subset."""
+    t0 = time.perf_counter()
+    os.environ["HYMET_PLATFORM"] = "cuda"
+    cfg8 = run_config(tmp)
+    (key,) = os.listdir(cfg8.cache_root)
+    run_files = ["--pred-profile", os.path.join(cfg8.outdir, "hymet.contigs.cami.tsv"),
+                 "--truth-profile", os.path.join(GUT, "truth_profile.tsv"),
+                 "--pred-contigs", os.path.join(cfg8.outdir, "classified_sequences.tsv"),
+                 "--pred-fasta", CONTIGS, "--taxonomy-dir", os.path.join(WORLD, "taxonomy"),
+                 "--taxmap", os.path.join(cfg8.cache_root, key, "detailed_taxonomy.tsv"),
+                 "--paf", os.path.join(cfg8.outdir, "work", "resultados.paf")]
+    # by name, as the harness scores a run
+    by_name = os.path.join(tmp, "eval_name")
+    log = {}
+    launches = eval_cli([*run_files, "--truth-contigs", os.path.join(GUT, "truth_contigs.tsv")],
+                        by_name, log)
+    if any(launches.values()) or "remap_s" in log:
+        raise AssertionError(f"eval by name ran the remap: {launches}")
+    summary = read_rows(os.path.join(by_name, "profile_summary.tsv"))
+    per_rank = read_rows(os.path.join(by_name, "contigs_per_rank.tsv"))
+    # by remap, against a second assembly
+    names, seqs = read_fasta(CONTIGS)
+    taxids = dict(read_rows(os.path.join(GUT, "truth_contigs.tsv")))
+    asm2, table = os.path.join(tmp, "asm2.fna"), os.path.join(tmp, "asm2_truth.tsv")
+    new = second_assembly(names, seqs, taxids, asm2, table)
+    argv = [*run_files, "--truth-contigs", table, "--truth-fasta", asm2]
+    remap = {}
+    launches = eval_cli(argv, os.path.join(tmp, "eval_remap"), remap)
+    index = remap["index_s_out"]
+    k_w = index.k + index.w
+    groups = len(plan_query_groups([len(q) for q in seqs], AlignerConfig().batch_pad, k_w)[0])
+    index_calls = len(_row_batches([int(n) for n in index.lengths], k_w - 1))
+    want = {"minimizers": groups + index_calls, "anchors": groups, "chains": groups}
+    if any(launches[k] < n for k, n in want.items()):
+        raise AssertionError(f"the remap's launches {launches} are below {want}")
+    pairs = remap["remap_s_out"]
+    counterpart = dict(zip(names, new))
+    wrong = {q: t for q, t in pairs.items() if counterpart[q] != t}
+    if wrong or not pairs:
+        raise AssertionError(f"{len(wrong)} of {len(pairs)} remap pairs are not counterparts")
+    plain = {}
+    with plain_ops():
+        eval_cli(argv, os.path.join(tmp, "eval_plain"), plain)
+    if plain["remap_s_out"] != pairs:
+        raise AssertionError("the plain remap pairs other contigs")
+    same_files(os.path.join(tmp, "eval_remap"), os.path.join(tmp, "eval_plain"),
+               ["contigs_exact.tsv", "contigs_per_rank.tsv"])
+    exact = read_rows(os.path.join(tmp, "eval_remap", "contigs_exact.tsv"))
+    # the dataset tools (host code)
+    t = time.perf_counter()
+    dataset = os.path.join(tmp, "testdataset")
+    if cli.main(["testdataset", GENOMES, "--out", dataset, "--seed", str(seed)]) != 0:
+        raise AssertionError("testdataset failed")
+    testdataset_s = time.perf_counter() - t
+    with open(os.path.join(dataset, "gcf2seqid.tsv")) as f:
+        genomes = sum(1 for _ in f) - 1
+    subset = os.path.join(tmp, "subset.fna")
+    t = time.perf_counter()
+    if cli.main(["subset", CONTIGS, "--output", subset, "--max-seqs", "500",
+                 "--max-bases", "5000000"]) != 0:
+        raise AssertionError("subset failed")
+    subset_s = time.perf_counter() - t
+    subset_seqs = read_fasta(subset)[1]
+    emit("eval", t0, by_name={"s": log["eval_s"], "profile_summary": summary,
+                              "contigs_per_rank": per_rank},
+         remap={"contigs": len(names), "bases": sum(map(len, seqs)), "pairs": len(pairs),
+                "all_counterparts": True, "eval_s": remap["eval_s"], "remap_s": remap["remap_s"],
+                "index_s": remap["index_s"], "map_s": remap["map_s"],
+                "rest_s": remap["remap_s"] - remap["index_s"] - remap["map_s"],
+                "unpaired": unpaired(remap["map_s_out"], counterpart, pairs),
+                "launches": launches, "map_groups": groups, "index_batches": index_calls,
+                "contigs_exact": exact, "identical_to_plain": True,
+                "plain": {"remap_s": plain["remap_s"], "index_s": plain["index_s"],
+                          "map_s": plain["map_s"]}},
+         testdataset={"genomes": genomes, "s": testdataset_s},
+         subset={"sequences": len(subset_seqs), "bases": sum(map(len, subset_seqs)),
+                 "s": subset_s})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2081,6 +2268,7 @@ def main() -> int:
         gut = phase_run(tmp)
         lca_stats = phase_lca(args.seed, gut, sms, clock_mhz * 1e6)
         db = phase_db(tmp, sms, clock_mhz * 1e6)
+        phase_eval(tmp, args.seed)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

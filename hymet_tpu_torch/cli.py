@@ -4,15 +4,19 @@ The subcommands of hymet_tpu's command line (``hymet_tpu/cli.py``) that the
 port runs, with its flags, ``--dry-run`` plan lines, messages and exit
 codes: ``run`` and ``legacy`` (one sample end to end), ``sketch`` (sketch
 DBs, ``.npz`` or Mash ``.msh``), ``index`` (a minimizer index),
-``taxonomy`` (``taxonomy_hierarchy.tsv`` from a taxdump) and
-``prune-cache``. One difference: ``--backend`` defaults to ``device``, the
+``taxonomy`` (``taxonomy_hierarchy.tsv`` from a taxdump), ``prune-cache``,
+``eval`` (score a run against the truth; a contig remap runs on the
+device), ``diag`` (PAF targets against the id map), and the dataset tools
+``subset``, ``testdataset`` and ``cami-subsets``. One difference: ``--backend`` defaults to ``device``, the
 port's name for the JAX package's ``jax`` backend (which is accepted as
 the same).
 
 The device comes from ``HYMET_PLATFORM``, the variable the JAX command
 line reads: unset, ``gpu`` or ``cuda`` run on the card (and fail without
 one); ``cpu`` runs the plain CPU path; anything else is an error. There is
-no silent CPU fallback. ``--dry-run`` prints the resolved plan and touches
+no silent CPU fallback: ``eval`` asks for the device even when no remap
+runs, so ``HYMET_PLATFORM=cpu`` scores profiles on a machine without a
+card. ``--dry-run`` prints the resolved plan and touches
 no device.
 """
 
@@ -151,6 +155,97 @@ def command_prune_cache(args) -> int:
     return 0
 
 
+def command_eval(args) -> int:
+    if _plan(
+        args,
+        [f"eval: pred={args.pred_profile} truth={args.truth_profile} out={args.out}"],
+    ):
+        return 0
+    from hymet_tpu_torch.evalx.eval_cami import evaluate
+
+    return evaluate(
+        pred_profile=args.pred_profile,
+        truth_profile=args.truth_profile,
+        pred_contigs=args.pred_contigs,
+        truth_contigs=args.truth_contigs,
+        pred_fasta=args.pred_fasta,
+        truth_fasta=args.truth_fasta,
+        taxonomy_dir=args.taxonomy_dir,
+        taxmap=args.taxmap,
+        paf=args.paf,
+        presence_thresh=args.presence_thresh,
+        outdir=args.out,
+        device=device_from_env(),
+    )
+
+
+def command_subset(args) -> int:
+    if _plan(args, [f"subset: {args.input} -> {args.output} (max {args.max_seqs} seqs / {args.max_bases} bases)"]):
+        return 0
+    from hymet_tpu_torch.data.subsets import subset_fasta
+
+    n, bases = subset_fasta(args.input, args.output, args.max_seqs, args.max_bases)
+    print(f"[hymet-tpu] wrote {n} sequences / {bases} bases to {args.output}")
+    return 0
+
+
+def command_testdataset(args) -> int:
+    if _plan(
+        args,
+        [
+            f"testdataset: {args.genome_dir} -> {args.out} "
+            f"(genomes {args.fraction_genomes}, trim {args.trim_fraction}, mutation {args.mutation_rate})"
+        ],
+    ):
+        return 0
+    from hymet_tpu_torch.data.testdataset import build_test_dataset
+
+    gcf_map = build_test_dataset(
+        args.genome_dir,
+        args.out,
+        fraction_genomes=args.fraction_genomes,
+        trim_fraction=args.trim_fraction,
+        mutation_rate=args.mutation_rate,
+        seed=args.seed,
+    )
+    print(f"[hymet-tpu] built test dataset with {len(gcf_map)} genomes -> {args.out}")
+    return 0
+
+
+def command_cami_subsets(args) -> int:
+    if _plan(args, [f"cami-subsets: {args.fasta} + {args.mapping} -> {args.out}"]):
+        return 0
+    from hymet_tpu_torch.data.cami_subsets import generate_cami_subsets
+    from hymet_tpu_torch.taxonomy.db import TaxonomyDB
+
+    taxdb = (
+        TaxonomyDB.from_taxdump(args.taxonomy_dir)
+        if os.path.exists(os.path.join(args.taxonomy_dir, "names.dmp"))
+        else TaxonomyDB.from_hierarchy_tsv(
+            os.path.join(args.taxonomy_dir, "taxonomy_hierarchy.tsv")
+        )
+    )
+    out = generate_cami_subsets(args.fasta, args.mapping, taxdb, args.out)
+    for name, taxids in out.items():
+        print(f"[hymet-tpu] {name}: {len(taxids)} taxa")
+    return 0
+
+
+def command_diag(args) -> int:
+    if _plan(args, [f"diag: overlap of {args.paf} targets vs {args.taxonomy}"]):
+        return 0
+    from hymet_tpu_torch.evalx.diagnostics import diag_overlap
+    from hymet_tpu_torch.models.first_hit import build_id_map
+
+    id_map = build_id_map(args.taxonomy)
+    n_keys, n_targets, direct, versionless = diag_overlap(args.paf, id_map)
+    print(
+        f"[diag] id_map_keys={n_keys:,} unique_paf_targets={n_targets:,} "
+        f"direct_overlap={direct} versionless_overlap={versionless}"
+    )
+    return 0
+
+
 def command_legacy(args) -> int:
     """Legacy pipeline: the main.pl path (classification.py's exact-match
     + LCA classifier)."""
@@ -231,6 +326,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-delete", action="store_true", help="Report only")
     p.add_argument("--dry-run", action="store_true")
     p.set_defaults(func=command_prune_cache)
+
+    p = sub.add_parser("eval", help="CAMI profile + contig evaluation")
+    p.add_argument("--pred-profile")
+    p.add_argument("--truth-profile")
+    p.add_argument("--pred-contigs")
+    p.add_argument("--truth-contigs")
+    p.add_argument("--pred-fasta", help="for MD5/remap contig pairing")
+    p.add_argument("--truth-fasta")
+    p.add_argument("--taxonomy-dir")
+    p.add_argument("--taxmap", help="detailed_taxonomy.tsv for the id-map cascade")
+    p.add_argument("--paf", help="alignment PAF for the first-hit fallback")
+    p.add_argument("--presence-thresh", type=float, default=0.1)
+    p.add_argument("--out", required=True)
+    p.add_argument("--dry-run", action="store_true")
+    p.set_defaults(func=command_eval)
+
+    p = sub.add_parser("subset", help="Subset a FASTA by seq/base caps")
+    p.add_argument("input")
+    p.add_argument("--output", required=True)
+    p.add_argument("--max-seqs", type=int, default=1000)
+    p.add_argument("--max-bases", type=int, default=500_000_000)
+    p.add_argument("--dry-run", action="store_true")
+    p.set_defaults(func=command_subset)
+
+    p = sub.add_parser("testdataset", help="Build a synthetic mutated test dataset")
+    p.add_argument("genome_dir")
+    p.add_argument("--out", required=True)
+    p.add_argument("--fraction-genomes", type=float, default=0.1)
+    p.add_argument("--trim-fraction", type=float, default=0.1)
+    p.add_argument("--mutation-rate", type=float, default=0.02)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dry-run", action="store_true")
+    p.set_defaults(func=command_testdataset)
+
+    p = sub.add_parser("cami-subsets", help="Generate derived CAMI sample subsets")
+    p.add_argument("--fasta", required=True)
+    p.add_argument("--mapping", required=True, help="gsa_mapping truth TSV")
+    p.add_argument("--taxonomy-dir", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--dry-run", action="store_true")
+    p.set_defaults(func=command_cami_subsets)
+
+    p = sub.add_parser("diag", help="PAF-target vs id-map overlap diagnostic")
+    p.add_argument("--paf", required=True)
+    p.add_argument("--taxonomy", required=True, help="detailed_taxonomy.tsv")
+    p.add_argument("--dry-run", action="store_true")
+    p.set_defaults(func=command_diag)
 
     return parser
 

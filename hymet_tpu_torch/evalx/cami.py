@@ -1,5 +1,5 @@
-"""CAMI profile export: ``classified_sequences.tsv`` -> CAMI profile (copy of
-the export half of hymet_tpu.evalx.cami).
+"""CAMI profile export: ``classified_sequences.tsv`` -> CAMI profile, and the
+readers the evaluator and converters share (copy of hymet_tpu.evalx.cami).
 
 Parity with reference ``tools/hymet2cami.py`` (same parsing, counting,
 ordering, and formatting), with the taxonkit subprocess calls
@@ -34,11 +34,15 @@ def parse_lineage_cami(lineage: str) -> Dict[str, str]:
     return out
 
 
+def read_lineages(path: str) -> List[Dict[str, str]]:
+    """Per-contig rank->name lineages from ``classified_sequences.tsv``
+    (rows whose Lineage column names at least one recognized rank)."""
+    return [ranks for _, ranks in read_query_lineages(path)]
+
+
 def read_query_lineages(path: str) -> List[Tuple[str, Dict[str, str]]]:
-    """Per-contig (query, rank->name lineage) pairs from
-    ``classified_sequences.tsv``: the rows whose Lineage column names at
-    least one recognized rank. The Query column lets callers weight
-    records (e.g. by contig length) instead of counting."""
+    """Like :func:`read_lineages` but keeps the Query column, so callers
+    can weight records (e.g. by contig length) instead of counting."""
     out: List[Tuple[str, Dict[str, str]]] = []
     with open(path, encoding="utf-8", errors="ignore") as fh:
         for r in csv.DictReader(fh, delimiter="\t"):
@@ -129,3 +133,35 @@ def classified_to_cami(
     with open(out_path, "w", encoding="utf-8") as f:
         emit_cami(f, counts, totals, taxid2path, sample_id)
     return len(records)
+
+
+# ----------------------------------------------------------------------
+# CAMI profile parsing (shared by the evaluator and harness)
+
+
+def parse_cami_profile(path: str) -> List[Dict[str, str]]:
+    """Rows of TAXID/RANK/TAXPATH/TAXPATHSN/PERCENTAGE; tolerant of header
+    variants (used by eval + converters)."""
+    rows: List[Dict[str, str]] = []
+    with open(path, encoding="utf-8", errors="ignore") as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line or line.startswith("#") or line.startswith("@"):
+                continue
+            parts = line.split("\t")
+            if len(parts) < 5:
+                continue
+            try:
+                pct = float(parts[4])
+            except ValueError:
+                continue
+            rows.append(
+                {
+                    "taxid": parts[0].strip(),
+                    "rank": parts[1].strip().lower(),
+                    "taxpath": parts[2].strip(),
+                    "taxpathsn": parts[3].strip(),
+                    "percentage": pct,
+                }
+            )
+    return rows

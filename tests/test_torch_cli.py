@@ -1,12 +1,16 @@
 """hymet_tpu_torch's command line against hymet_tpu's on the CPU: the
-``--dry-run`` plan lines of run, legacy, sketch, index, taxonomy and
-prune-cache (equal but for the documented ``classifier_backend`` default);
+``--dry-run`` plan lines of run, legacy, sketch, index, taxonomy,
+prune-cache, eval, diag, subset, testdataset and cami-subsets (equal but
+for the documented ``classifier_backend`` default);
 ``RunConfig.from_env`` under a patched environment; ``HYMET_PLATFORM=cpu
 python -m hymet_tpu_torch sketch`` writing the JAX CLI's ``.npz`` arrays
 and ``.msh`` bytes; ``run`` and ``legacy`` on the world of
 tests/test_pipeline_e2e.py writing the JAX CLI's stage files byte for
-byte; index, taxonomy and prune-cache runs; and the device rule (no CPU
-fallback, an unknown platform refused)."""
+byte; index, taxonomy and prune-cache runs; ``eval`` and ``diag`` on the
+gut sample and the dataset tools through both command lines with the same
+files; and the device rule (no CPU fallback, an unknown platform refused,
+``eval`` refused without ``HYMET_PLATFORM=cpu`` on a machine without a
+card)."""
 
 import dataclasses
 import filecmp
@@ -74,6 +78,19 @@ RUN_ARGS = ["--contigs", "c.fna", "--out", "o", "--threads", "2", "--cand-max", 
     ["taxonomy", "taxdump/", "--out", "t/h.tsv", "--dry-run"],
     ["prune-cache", "cache", "--max-age-days", "3", "--max-size-gb", "0.5", "--dry-run"],
     ["prune-cache", "cache", "--dry-run"],
+    ["eval", "--out", "e", "--dry-run"],
+    ["eval", "--pred-profile", "p.tsv", "--truth-profile", "t.tsv", "--pred-contigs", "c.tsv",
+     "--truth-contigs", "tc.tsv", "--pred-fasta", "p.fna", "--truth-fasta", "t.fna",
+     "--taxonomy-dir", "tax", "--taxmap", "m.tsv", "--paf", "r.paf", "--presence-thresh", "0.5",
+     "--out", "e", "--dry-run"],
+    ["diag", "--paf", "r.paf", "--taxonomy", "d.tsv", "--dry-run"],
+    ["subset", "in.fna", "--output", "s.fna", "--dry-run"],
+    ["subset", "in.fna", "--output", "s.fna", "--max-seqs", "3", "--max-bases", "99", "--dry-run"],
+    ["testdataset", "genomes/", "--out", "td", "--dry-run"],
+    ["testdataset", "genomes/", "--out", "td", "--fraction-genomes", "0.5", "--trim-fraction",
+     "0.2", "--mutation-rate", "0.1", "--seed", "4", "--dry-run"],
+    ["cami-subsets", "--fasta", "c.fna", "--mapping", "m.tsv", "--taxonomy-dir", "tax", "--out",
+     "cs", "--dry-run"],
 ], ids=lambda a: "-".join(x for x in a if not x.startswith(("--", "c.", "o")))[:40])
 @pytest.mark.parametrize("env", ["clean", "patched"])
 def test_dry_run_lines_equal_jax(clean_env, capsys, argv, env):
@@ -303,5 +320,131 @@ def test_module_entry_point_prints_usage():
     out = subprocess.run([sys.executable, "-m", "hymet_tpu_torch", "--help"], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0
-    for cmd in ("run", "legacy", "sketch", "index", "taxonomy", "prune-cache"):
+    for cmd in ("run", "legacy", "sketch", "index", "taxonomy", "prune-cache", "eval", "diag",
+                "subset", "testdataset", "cami-subsets"):
         assert cmd in out.stdout
+
+
+# ----------------------------------------------------------------------
+# the evaluator and the dataset tools
+
+WORLD = os.path.join(REPO, "validation", "work_cami_suite")
+GUT = os.path.join(WORLD, "data", "camisyn_gut")
+
+
+@pytest.fixture(scope="module")
+def gut_run(world, cli_runs):
+    """What eval scores: the port's run of the e2e world (its TSV, profile,
+    PAF and cache's detailed_taxonomy.tsv) against that world's truth,
+    written as a truth table from the world's contig labels."""
+    tmp, _ = cli_runs
+    run = tmp / "torch" / "run"
+    (key,) = os.listdir(tmp / "torch" / "cache")
+    truth = tmp / "truth_contigs.tsv"
+    names = [ln[1:].split()[0] for ln in open(world["query"]) if ln.startswith(">")]
+    taxids = [ln.split("\t")[1].strip() for ln in open(world["seqid2taxid"])]
+    truth.write_text("contig_id\ttaxid\n" + "".join(
+        f"{n}\t{taxids[i % len(taxids)]}\n" for i, n in enumerate(names)))
+    return {"pred_profile": str(run / "hymet.sample.cami.tsv"),
+            "classified": str(run / "classified_sequences.tsv"),
+            "paf": str(run / "work" / "resultados.paf"), "truth": str(truth),
+            "taxmap": str(tmp / "torch" / "cache" / key / "detailed_taxonomy.tsv"),
+            "query": world["query"], "tax_dir": world["tax_dir"]}
+
+
+def _eval_argv(run, out):
+    return ["eval", "--pred-profile", run["pred_profile"], "--truth-profile", run["pred_profile"],
+            "--pred-contigs", run["classified"], "--truth-contigs", run["truth"],
+            "--pred-fasta", run["query"], "--taxonomy-dir", run["tax_dir"],
+            "--taxmap", run["taxmap"], "--paf", run["paf"], "--out", str(out)]
+
+
+def test_eval_writes_the_jax_files(clean_env, tmp_path, capsys, gut_run):
+    clean_env.setenv("HYMET_PLATFORM", "cpu")
+    assert jcli.main(_eval_argv(gut_run, tmp_path / "j")) == 0
+    assert tcli.main(_eval_argv(gut_run, tmp_path / "t")) == 0
+    written = sorted(os.listdir(tmp_path / "j"))
+    assert sorted(os.listdir(tmp_path / "t")) == written and "contigs_exact.tsv" in written
+    for name in written:
+        assert filecmp.cmp(tmp_path / "t" / name, tmp_path / "j" / name, shallow=False), name
+
+
+def test_eval_module_under_one_hash_seed_writes_the_jax_files(tmp_path, gut_run):
+    """``python -m hymet_tpu_torch eval`` and the JAX command line, each in
+    a child process under PYTHONHASHSEED=0, on the committed gut profile
+    scored against itself rebuilt from its truth table: every gap is 0, so
+    set order alone orders profile_diffs_*."""
+    argv = ["eval", "--pred-profile", os.path.join(GUT, "truth_profile.tsv"),
+            "--truth-contigs", os.path.join(GUT, "truth_contigs.tsv"),
+            "--pred-fasta", os.path.join(GUT, "contigs.fna"),
+            "--taxonomy-dir", os.path.join(WORLD, "taxonomy")]
+    env = {**os.environ, "PYTHONPATH": REPO, "PYTHONHASHSEED": "0", "HYMET_PLATFORM": "cpu",
+           "HYMET_NO_COMPILE_CACHE": "1"}
+    for pkg in ("hymet_tpu", "hymet_tpu_torch"):
+        mod = [pkg + ".cli"] if pkg == "hymet_tpu" else [pkg]
+        out = subprocess.run([sys.executable, "-m", *mod, *argv, "--out", str(tmp_path / pkg)],
+                             cwd=str(tmp_path), env=env, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode == 0, out.stderr
+    written = sorted(os.listdir(tmp_path / "hymet_tpu"))
+    assert sorted(os.listdir(tmp_path / "hymet_tpu_torch")) == written
+    assert "profile_diffs_species.tsv" in written
+    for name in written:
+        assert filecmp.cmp(tmp_path / "hymet_tpu_torch" / name, tmp_path / "hymet_tpu" / name,
+                           shallow=False), name
+
+
+@pytest.mark.parametrize("platform", [None, "gpu", "cuda"])
+def test_eval_without_a_card_is_refused(clean_env, tmp_path, capsys, platform):
+    """eval asks for the card even with nothing to remap: here, without
+    one, it fails (exit 1) before writing; HYMET_PLATFORM=cpu scores."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    if platform:
+        clean_env.setenv("HYMET_PLATFORM", platform)
+    prof = os.path.join(GUT, "truth_profile.tsv")
+    argv = ["eval", "--pred-profile", prof, "--truth-profile", prof, "--out", str(tmp_path / "e")]
+    assert tcli.main(argv) == 1
+    assert "CUDA" in capsys.readouterr().err and not (tmp_path / "e").exists()
+    clean_env.setenv("HYMET_PLATFORM", "cpu")
+    assert tcli.main(argv) == 0 and (tmp_path / "e" / "profile_summary.tsv").exists()
+
+
+def test_diag_prints_the_jax_line(clean_env, tmp_path, capsys, gut_run):
+    argv = ["diag", "--paf", gut_run["paf"], "--taxonomy", gut_run["taxmap"]]
+    assert jcli.main(argv) == 0
+    want = capsys.readouterr().out
+    assert tcli.main(argv) == 0
+    got = capsys.readouterr().out
+    assert got == want and "\n[diag] id_map_keys=" in got
+
+
+def test_dataset_tools_write_the_jax_files(clean_env, tmp_path, capsys):
+    """subset, testdataset and cami-subsets through both command lines:
+    the same messages and files."""
+    mapping = tmp_path / "gsa.tsv"
+    rows = [ln.split() for ln in open(os.path.join(GUT, "truth_contigs.tsv"))][1:]
+    mapping.write_text("#contig\tgenome\ttaxid\ta\tb\tstart\tend\n" + "".join(
+        f"{c}\tg\t{t}\tx\ty\t1\t{1000 + i}\n" for i, (c, t) in enumerate(rows)))
+    genomes = tmp_path / "genomes"
+    genomes.mkdir()
+    for d in sorted(os.listdir(os.path.join(WORLD, "genomes")))[:20]:
+        os.symlink(os.path.join(WORLD, "genomes", d), genomes / d)
+    for pkg, main in (("j", jcli.main), ("t", tcli.main)):
+        out = tmp_path / pkg
+        assert main(["subset", os.path.join(GUT, "contigs.fna"), "--output", str(out / "s.fna"),
+                     "--max-seqs", "50", "--max-bases", "400000"]) == 0
+        assert main(["testdataset", str(genomes), "--out", str(out / "td"), "--seed", "3",
+                     "--fraction-genomes", "0.2"]) == 0
+        assert main(["cami-subsets", "--fasta", os.path.join(GUT, "contigs.fna"), "--mapping",
+                     str(mapping), "--taxonomy-dir", os.path.join(WORLD, "taxonomy"), "--out",
+                     str(out / "cs")]) == 0
+        msgs = capsys.readouterr().out
+        (tmp_path / f"{pkg}.log").write_text(msgs.replace(str(out), "OUT"))
+    assert (tmp_path / "t.log").read_text() == (tmp_path / "j.log").read_text()
+    assert "built test dataset with 4 genomes" in (tmp_path / "t.log").read_text()
+    files = sorted(os.path.relpath(os.path.join(d, f), tmp_path / "j")
+                   for d, _, fs in os.walk(tmp_path / "j") for f in fs)
+    assert len(files) == 1 + 5 + 18
+    for name in files:
+        assert filecmp.cmp(tmp_path / "t" / name, tmp_path / "j" / name, shallow=False), name

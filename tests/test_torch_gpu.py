@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import chip_smoke
+from hymet_tpu_torch.evalx import eval_cami
 from hymet_tpu_torch.io.fasta import pack_code_batch, read_fasta
 from hymet_tpu_torch.io.sketchdb import load_sketch_db
 from hymet_tpu_torch.ops import hash_kernels
@@ -605,3 +606,28 @@ def test_build_sketch_db_on_card_equals_committed(tmp_path):
                                              lengths=want.lengths[:6]), "sketch1[:6] in pieces")
     pieces = launches()
     assert pieces[0] > after[0] and pieces[1] == after[1] and pieces[2] > after[2]
+
+
+@pytest.mark.gpu
+def test_contig_remap_on_card_matches_plain(tmp_path):
+    """The evaluator's remap of 60 gut contigs against their second
+    assembly (chip_smoke.second_assembly), unstaged through minimizers,
+    anchors and chains: each launched, and the same pairs, every one a
+    contig's own counterpart, as through the plain versions on the card
+    and on the CPU."""
+    _need_card()
+    names, seqs = read_fasta(chip_smoke.CONTIGS)
+    names, seqs = names[:60], seqs[:60]
+    pred = tmp_path / "pred.fna"
+    pred.write_text("".join(f">{n}\n{q.decode()}\n" for n, q in zip(names, seqs)))
+    asm2 = str(tmp_path / "asm2.fna")
+    new = chip_smoke.second_assembly(names, seqs, dict.fromkeys(names, "1"), asm2,
+                                     str(tmp_path / "t.tsv"))
+    chip_smoke.zero_launches()
+    got = eval_cami._contig_remap(str(pred), asm2, device="cuda")
+    launches = chip_smoke.align_launches()
+    with chip_smoke.plain_ops():
+        plain = eval_cami._contig_remap(str(pred), asm2, device="cuda")
+    assert all(n > 0 for n in launches.values()), launches
+    assert got == plain == eval_cami._contig_remap(str(pred), asm2, device="cpu")
+    assert len(got) >= 30 and all(t == new[names.index(q)] for q, t in got.items())

@@ -78,6 +78,15 @@ CLI_MODULES = [
 ]
 
 
+EVAL_MODULES = [
+    "hymet_tpu_torch.evalx", "hymet_tpu_torch.evalx.eval_cami",
+    "hymet_tpu_torch.evalx.superkingdom_fix", "hymet_tpu_torch.evalx.converters",
+    "hymet_tpu_torch.evalx.diagnostics", "hymet_tpu_torch.data", "hymet_tpu_torch.data.subsets",
+    "hymet_tpu_torch.data.testdataset", "hymet_tpu_torch.data.cami_subsets",
+    "hymet_tpu_torch.data.zymo_taxonomy",
+]
+
+
 _IMPORT_EACH_ALONE = r"""
 import importlib, json, os, sys, traceback
 
@@ -101,14 +110,14 @@ print(json.dumps(results))
 
 @pytest.fixture(scope="module")
 def alone():
-    """Exit code of importing each module of ALIGN_MODULES, RUN_MODULES and
-    CLI_MODULES alone, with jax and hymet_tpu blocked (0: imported, pulling in
+    """Exit code of importing each module of ALIGN_MODULES, RUN_MODULES,
+    CLI_MODULES and EVAL_MODULES alone, with jax and hymet_tpu blocked (0: imported, pulling in
     neither), from one interpreter that forks a child a module."""
     code = _BLOCKED_IMPORTS.split("import hymet_tpu_torch")[0] + _IMPORT_EACH_ALONE
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", code, *ALIGN_MODULES, *RUN_MODULES,
-                          *CLI_MODULES], cwd=REPO,
+                          *CLI_MODULES, *EVAL_MODULES], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     return json.loads(out.stdout.strip().splitlines()[-1]), out.stderr
@@ -135,6 +144,15 @@ def test_cli_module_imports_without_jax_or_reference_package(alone, module):
     """Each module of the DB build and command-line slice, imported alone
     with jax and hymet_tpu blocked, pulls in neither (the package's
     ``__main__`` does not run when imported)."""
+    codes, stderr = alone
+    assert codes[module] == 0, stderr
+
+
+@pytest.mark.parametrize("module", EVAL_MODULES)
+def test_eval_module_imports_without_jax_or_reference_package(alone, module):
+    """Each module of the evaluator and dataset-tools slice, imported alone
+    with jax and hymet_tpu blocked, pulls in neither (the converters carry
+    their own copy of the JAX harness's CAMI writer)."""
     codes, stderr = alone
     assert codes[module] == 0, stderr
 
@@ -210,6 +228,25 @@ def test_run_entry_points_default_to_the_card(tmp_path):
     n = weighted_lca(rows, torch.ones((1, 8), dtype=torch.float64),
                      torch.ones((1, 8), dtype=torch.int32))[1]
     assert n.tolist() == [8]
+
+
+def test_eval_entry_points_default_to_the_card(tmp_path):
+    """evaluate, score_contigs and the remap, called without device=, ask
+    for CUDA and raise here, where there is no card."""
+    _no_card()
+    from hymet_tpu_torch.evalx import eval_cami
+    from hymet_tpu_torch.taxonomy.db import TaxonomyDB
+
+    fasta = tmp_path / "a.fna"
+    fasta.write_text(">a\n" + "ACGTTGCAAGGCTTAC" * 40 + "\n")
+    for call in (
+        lambda: eval_cami.evaluate(None, None, str(tmp_path / "out")),
+        lambda: eval_cami.score_contigs(None, [], TaxonomyDB(), str(tmp_path)),
+        lambda: eval_cami._contig_remap(str(fasta), str(fasta)),
+        lambda: eval_cami._pairs_by_remap({}, {}, str(fasta), str(fasta)),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_chip_smoke_refuses_to_run_without_card():

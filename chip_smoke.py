@@ -144,6 +144,30 @@ Phases, each printed as one JSON line with its seconds:
              swapped); the pair count and the remap's seconds (index build,
              map, the rest). Then ``testdataset`` on the in-repo genomes and
              ``subset`` of the gut contigs, with their counts (host code).
+12. harness — the experiment harnesses as a user calls them, on the card,
+             with a cold cache of their own: ``cli.main(["bench", ...])`` on a
+             manifest of the three in-repo CAMI samples (gut, marine,
+             strainmadness, with their truth files), every launch count set
+             to 0 just before each sample's run and read just after
+             (``screen_count``, ``minimizers``, ``anchors``, ``chains`` and
+             ``lca`` each launched; no first-hit fallback); each sample's
+             files, runtime rows and aggregate tables; each TSV equal to a
+             CPU re-classification of its own PAF, and gut's ``eval/`` equal
+             to ``evaluate(..., device="cpu")`` on the same inputs; then
+             ``run`` on gut at the bench's settings (``--cand-max 1500
+             --species-dedup``, the bench's cache) writing the bench's gut
+             files byte for byte. ``case`` on gut against the bench's gut
+             profile (KL 0, Spearman 1). ``ablation`` of the bench's cached
+             gut reference (216 genomes) at levels 0.0 and 1.0 of the three
+             taxa with the most gut contigs: each level's run launches
+             ``minimizers``, ``anchors``, ``chains`` and ``lca`` and not
+             ``screen_count`` (a preset reference: no screen), and its TSV
+             equals a CPU re-classification of its PAF. ``truth build-zymo``
+             on the bench's gut PAF (host code: equal to ``build_zymo_truth``
+             under ``HYMET_PLATFORM=cpu``) and ``fetch`` of ``file://`` URLs.
+             The bench and the ablation catch a run's failure and go on, as
+             the JAX harness does, so the phase decides from files and
+             launch counts, never from an exit code alone.
 
 Then the card's name and power limit as nvidia-smi prints them, one JSON
 line with the kernels' numbers, and as the last line
@@ -156,6 +180,7 @@ from __future__ import annotations
 import argparse
 import filecmp
 import gzip
+import hashlib
 import json
 import math
 import os
@@ -172,6 +197,7 @@ import torch
 
 from hymet_tpu_torch import cli
 from hymet_tpu_torch.evalx import eval_cami
+from hymet_tpu_torch.harness import zymo_truth
 from hymet_tpu_torch.io import sketchdb
 from hymet_tpu_torch.io.fasta import encode_seq, iter_fasta, pack_code_batch, read_fasta
 from hymet_tpu_torch.io.minimizer_index import MinimizerIndex, _row_batches
@@ -2236,6 +2262,259 @@ def phase_eval(tmp: str, seed: int) -> None:
                  "s": subset_s})
 
 
+HARNESS_SAMPLES = ("camisyn_gut", "camisyn_marine", "camisyn_strainmadness")
+HARNESS_KERNELS = ("screen_count", "minimizers", "anchors", "chains", "lca")
+
+
+def counted_runs(log: list):
+    """Context in which every ClassificationRun.execute counts its launches
+    from 0 and appends its outdir, launches, seconds and fallback to `log`
+    (the harnesses build their runs inside their own functions)."""
+    real = ClassificationRun.execute
+
+    def execute(self):
+        torch.cuda.synchronize()
+        zero_launches()
+        t = time.perf_counter()
+        out = real(self)
+        torch.cuda.synchronize()
+        log.append({"outdir": self.cfg.outdir, "s": time.perf_counter() - t,
+                    "launches": all_launches(), "fallback_ran": self.fallback_ran})
+        return out
+    return mock.patch.object(ClassificationRun, "execute", execute)
+
+
+def same_as_cpu_classification(outdir: str, cache_dir: str, scratch: str) -> None:
+    """A run's classified_sequences.tsv against classify_paf of its own PAF
+    on the CPU, with its reference's detailed_taxonomy.tsv."""
+    cpu = os.path.join(scratch, "classified_cpu.tsv")
+    classify_paf(os.path.join(outdir, "work", "resultados.paf"),
+                 os.path.join(cache_dir, "detailed_taxonomy.tsv"),
+                 os.path.join(WORLD, "taxonomy", "taxonomy_hierarchy.tsv"), cpu, device="cpu")
+    if not filecmp.cmp(os.path.join(outdir, "classified_sequences.tsv"), cpu, shallow=False):
+        raise AssertionError(f"{outdir}: the TSV differs from the CPU re-classification")
+
+
+def checked_runs(runs: list, want: int, kernels, idle=()) -> list:
+    """The runs' launches: `want` runs, each launching every kernel of
+    `kernels` and none of `idle`, none falling back to first-hit."""
+    if len(runs) != want:
+        raise AssertionError(f"{len(runs)} runs finished, {want} expected")
+    for r in runs:
+        missing = [k for k in kernels if r["launches"][k] <= 0]
+        if missing or any(r["launches"][k] for k in idle) or r["fallback_ran"]:
+            raise AssertionError(f"{r['outdir']}: launches {r['launches']}, fallback "
+                                 f"{r['fallback_ran']}")
+    return [{k: r["launches"][k] for k in (*kernels, *idle)} for r in runs]
+
+
+def ablation_seqmap(combined: str, path: str) -> None:
+    """seqid -> taxid for the combined reference's headers, with each
+    genome's accession too (acc2taxid.tsv), as the harness tests make it."""
+    with open(os.path.join(WORLD, "acc2taxid.tsv")) as f:
+        acc2tax = dict(ln.rstrip("\n").split("\t")[:2] for ln in f if ln.strip())
+    with open(combined) as f, open(path, "w") as out:
+        for line in f:
+            if line.startswith(">"):
+                name = line[1:].split()[0]
+                acc = "_".join(name.split("_")[:2])
+                out.write(f"{name}\t{acc2tax[acc]}\n{acc}\t{acc2tax[acc]}\n")
+
+
+def phase_harness(tmp: str) -> None:
+    """Phase 12: bench on the three in-repo CAMI samples, run at the bench's
+    settings, case, ablation at two levels, truth build-zymo and fetch."""
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "harness")
+    os.makedirs(root)
+    cache = os.path.join(root, "cache")
+    taxonomy = os.path.join(WORLD, "taxonomy")
+    dbs = [os.path.join(WORLD, f"{label}.npz") for label in DB_LABELS]
+    env = {"HYMET_PLATFORM": "cuda", "CACHE_ROOT": cache, "SKETCH_DBS": os.pathsep.join(dbs),
+           "GENOME_CATALOG": GENOMES, "SEQID2TAXID": os.path.join(WORLD, "acc2taxid.tsv"),
+           "TAXONOMY_DIR": taxonomy, "INPUT_FASTA": CONTIGS}
+    steps, pairs = {}, []
+
+    def cli_step(name: str, argv: list, want_rc: int = 0) -> None:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t
+        if rc != want_rc:
+            raise AssertionError(f"{argv[0]} exited {rc}")
+
+    with mock.patch.dict(os.environ, env):
+        for name in ("TAXONKIT_DB", "CAND_MAX", "SPECIES_DEDUP", "HYMET_PROFILE_WEIGHT"):
+            os.environ.pop(name, None)
+        # 1. bench
+        data = {s: os.path.join(WORLD, "data", s) for s in HARNESS_SAMPLES}
+        manifest = os.path.join(root, "manifest.tsv")
+        with open(manifest, "w") as f:
+            f.write("sample_id\tcontigs_fa\ttruth_contigs_tsv\ttruth_profile_tsv\n")
+            for s, d in data.items():
+                f.write(f"{s}\t{d}/contigs.fna\t{d}/truth_contigs.tsv\t{d}/truth_profile.tsv\n")
+        bench_out = os.path.join(root, "bench")
+        runs = []
+        with counted_runs(runs):
+            cli_step("bench", ["bench", "--manifest", manifest, "--tools", "hymet_tpu",
+                               "--out", bench_out])
+        launches = dict(zip(HARNESS_SAMPLES, checked_runs(runs, 3, HARNESS_KERNELS)))
+        samples = {}
+        for s, r in zip(HARNESS_SAMPLES, runs):
+            tool_dir = os.path.join(bench_out, s, "hymet_tpu")
+            work_out = os.path.join(tool_dir, "work_out")
+            if r["outdir"] != work_out:
+                raise AssertionError(f"run {r['outdir']} is not {s}'s")
+            for name in ("profile.cami.tsv", "classified_sequences.tsv", "resultados.paf",
+                         "metadata.json", "eval/profile_summary.tsv", "eval/contigs_per_rank.tsv"):
+                if not os.path.getsize(os.path.join(tool_dir, name)):
+                    raise AssertionError(f"{s}: {name} is empty")
+            with open(os.path.join(work_out, "metadata.json")) as f:
+                meta = json.load(f)
+            if torch.device(meta["device"]).type != "cuda" or meta["first_hit_fallback"]:
+                raise AssertionError(f"{s}: metadata {meta['device']}, {meta['first_hit_fallback']}")
+            with open(os.path.join(work_out, "work", "selected_genomes.txt"), "rb") as f:
+                key = hashlib.sha1(f.read()).hexdigest()
+            same_as_cpu_classification(work_out, os.path.join(cache, key), root)
+            pairs.append(f"{s}: TSV = CPU classify_paf of its PAF")
+            samples[s] = {"run_s": r["s"], "stage_s": meta["timings_sec"], "cache_key": key,
+                          "classified_rows": len(read_rows(os.path.join(tool_dir,
+                                                                        "classified_sequences.tsv"))),
+                          "profile_summary_species": [row for row in read_rows(os.path.join(
+                              tool_dir, "eval", "profile_summary.tsv")) if row[0] == "species"]}
+        stages = [row[:3] for row in read_rows(os.path.join(bench_out, "runtime_memory.tsv"))]
+        if stages != [[s, "hymet_tpu", st] for s in HARNESS_SAMPLES for st in ("run", "eval")]:
+            raise AssertionError(f"runtime_memory.tsv rows {stages}")
+        for name in ("summary_per_tool_per_sample.tsv", "contig_accuracy_per_tool.tsv"):
+            got = {row[0] for row in read_rows(os.path.join(bench_out, name))}
+            if got != set(HARNESS_SAMPLES):
+                raise AssertionError(f"{name} holds samples {got}")
+        if {row[2] for row in read_rows(os.path.join(bench_out, "leaderboard_by_rank.tsv"))} != {"3"}:
+            raise AssertionError("the leaderboard does not average 3 samples")
+        gut = os.path.join(bench_out, "camisyn_gut", "hymet_tpu")
+        gut_paf = os.path.join(gut, "resultados.paf")
+        cpu_eval = os.path.join(root, "gut_eval_cpu")
+        eval_cami.evaluate(pred_profile=os.path.join(gut, "profile.cami.tsv"),
+                           truth_profile=os.path.join(GUT, "truth_profile.tsv"),
+                           pred_contigs=os.path.join(gut, "classified_sequences.tsv"),
+                           truth_contigs=os.path.join(GUT, "truth_contigs.tsv"), pred_fasta=CONTIGS,
+                           truth_fasta=None, taxonomy_dir=taxonomy, paf=gut_paf, outdir=cpu_eval,
+                           device="cpu")
+        if sorted(os.listdir(os.path.join(gut, "eval"))) != sorted(os.listdir(cpu_eval)):
+            raise AssertionError("gut's eval/ and the CPU evaluation wrote other files")
+        same_files(os.path.join(gut, "eval"), cpu_eval, os.listdir(cpu_eval))
+        pairs.append(f"gut eval/ ({len(os.listdir(cpu_eval))} files) = evaluate on the CPU")
+        # run on gut at the bench's settings, on its cache: the bench's bytes
+        run_out = os.path.join(root, "run_gut")
+        rerun = []
+        with counted_runs(rerun):
+            cli_step("run_gut", ["run", "--contigs", CONTIGS, "--out", run_out, "--cand-max",
+                                 "1500", "--species-dedup", "--cache-root", cache,
+                                 "--taxonomy-dir", taxonomy, *(a for db in dbs
+                                                               for a in ("--sketch-db", db)),
+                                 "--genome-catalog", GENOMES, "--seqid2taxid",
+                                 os.path.join(WORLD, "acc2taxid.tsv")])
+        checked_runs(rerun, 1, HARNESS_KERNELS)
+        for name in ("classified_sequences.tsv", "work/resultados.paf", "hymet.contigs.cami.tsv"):
+            if not filecmp.cmp(os.path.join(run_out, name),
+                               os.path.join(gut, "work_out", name), shallow=False):
+                raise AssertionError(f"run's {name} differs from the bench's gut run")
+        pairs.append("run --cand-max 1500 --species-dedup on gut = bench's gut TSV, PAF, profile")
+        # 2. case
+        case_manifest = os.path.join(root, "case_manifest.tsv")
+        with open(case_manifest, "w") as f:
+            f.write("sample_id\tcontigs_fa\ttruth_contigs_tsv\ttruth_profile_tsv\t"
+                    "compare_profile\n")
+            f.write(f"camisyn_gut\t{CONTIGS}\t{GUT}/truth_contigs.tsv\t{GUT}/truth_profile.tsv\t"
+                    f"{gut}/profile.cami.tsv\n")
+        case_out = os.path.join(root, "case")
+        case_runs = []
+        with counted_runs(case_runs):
+            cli_step("case", ["case", "--manifest", case_manifest, "--out", case_out])
+        checked_runs(case_runs, 1, HARNESS_KERNELS)
+        case_dir = os.path.join(case_out, "camisyn_gut", "hymet_tpu")
+        with open(os.path.join(case_dir, "profile_compare.tsv")) as f:
+            compare = f.read()
+        if compare != ("metric\tvalue\nsymmetric_kl_species\t0.000000\n"
+                       "spearman_species\t1.000000\n"):
+            raise AssertionError(f"profile_compare.tsv reads {compare!r}")
+        if not os.path.getsize(os.path.join(case_dir, "top_taxa.tsv")):
+            raise AssertionError("top_taxa.tsv is empty")
+        pairs.append("case profile vs bench gut profile: KL 0, Spearman 1")
+        # 3. ablation of the bench's cached gut reference
+        key = samples["camisyn_gut"]["cache_key"]
+        combined = os.path.join(cache, key, "combined_genomes.fasta")
+        seqmap = os.path.join(root, "seqmap.tsv")
+        ablation_seqmap(combined, seqmap)
+        counts = {}
+        for _contig, taxid in read_rows(os.path.join(GUT, "truth_contigs.tsv")):
+            counts[taxid] = counts.get(taxid, 0) + 1
+        taxa = sorted(counts, key=lambda t: (-counts[t], t))[:3]
+        ab_out = os.path.join(root, "ablation")
+        ab_runs = []
+        with counted_runs(ab_runs):
+            cli_step("ablation", ["ablation", "--sample", "camisyn_gut", "--taxa", ",".join(taxa),
+                                  "--levels", "0.0,1.0", "--seqmap", seqmap, "--fasta", combined,
+                                  "--out", ab_out])
+        ab_launches = checked_runs(ab_runs, 2, HARNESS_KERNELS[1:], idle=("screen_count",))
+        fallback = read_rows(os.path.join(ab_out, "rank_fallback.tsv"))
+        if len(fallback) != 2 or int(fallback[0][1]) <= 0:
+            raise AssertionError(f"rank_fallback.tsv reads {fallback}")
+        levels = {}
+        for label, r, row in zip(("000", "100"), ab_runs, fallback):
+            lvl = os.path.join(ab_out, f"level_{label}")
+            (lvl_key,) = os.listdir(os.path.join(ab_out, "cache", label))
+            same_as_cpu_classification(lvl, os.path.join(ab_out, "cache", label, lvl_key), root)
+            pairs.append(f"ablation level {label}: TSV = CPU classify_paf of its PAF")
+            levels[label] = {"run_s": r["s"], "rank_fallback": row}
+        summary = read_rows(os.path.join(ab_out, "refsets", "ablation_summary.tsv"))
+        level_rows = [dict((r[0], r[1:]) for r in read_rows(os.path.join(ab_out, f"level_{label}",
+                                                                          "classified_sequences.tsv")))
+                      for label in ("000", "100")]
+        moved = sum(1 for q, r in level_rows[0].items() if level_rows[1].get(q) != r)
+        # 4. truth build-zymo on the bench's gut PAF (host code)
+        zymo = {name: os.path.join(root, f"zymo_{name}.tsv") for name in ("c", "p")}
+        cli_step("build_zymo", ["truth", "build-zymo", "--contigs", CONTIGS, "--paf", gut_paf,
+                                "--seqmap", seqmap, "--out-contigs", zymo["c"],
+                                "--out-profile", zymo["p"]])
+        with mock.patch.dict(os.environ, {"HYMET_PLATFORM": "cpu"}):
+            assigned = zymo_truth.build_zymo_truth(
+                CONTIGS, gut_paf, os.path.join(root, "zymo_c_cpu.tsv"),
+                os.path.join(root, "zymo_p_cpu.tsv"), seqmap=seqmap, taxonomy_dir=taxonomy)
+        for name in ("c", "p"):
+            if not filecmp.cmp(zymo[name], os.path.join(root, f"zymo_{name}_cpu.tsv"),
+                               shallow=False):
+                raise AssertionError(f"truth build-zymo's {name} file differs from the CPU's")
+        pairs.append("truth build-zymo = build_zymo_truth under HYMET_PLATFORM=cpu")
+        # 5. fetch of file:// URLs
+        fetch_manifest = os.path.join(root, "fetch", "manifest.tsv")
+        os.makedirs(os.path.dirname(fetch_manifest))
+        sources = {c: os.path.join(GUT, n) for c, n in (
+            ("contigs", "contigs.fna"), ("truth_contigs", "truth_contigs.tsv"),
+            ("truth_profile", "truth_profile.tsv"))}
+        with open(fetch_manifest, "w") as f:
+            f.write("sample_id\tcontigs_fa\ttruth_contigs_tsv\ttruth_profile_tsv\tcontigs_url\t"
+                    "truth_contigs_url\ttruth_profile_url\n")
+            f.write("camisyn_gut\tgut/contigs.fna\tgut/truth_contigs.tsv\tgut/truth_profile.tsv\t"
+                    + "\t".join("file://" + os.path.abspath(p) for p in sources.values()) + "\n")
+        cli_step("fetch", ["fetch", "--manifest", fetch_manifest])
+        for c, src in sources.items():
+            got = os.path.join(root, "fetch", "gut", os.path.basename(src))
+            if not filecmp.cmp(got, src, shallow=False):
+                raise AssertionError(f"fetch's {c} differs from its source")
+        pairs.append("fetch: 3 file:// assets = their sources")
+    emit("harness", t0, steps_s=steps, samples=samples, launches=launches,
+         run_gut_launches=rerun[0]["launches"], case_launches=case_runs[0]["launches"],
+         ablation={"taxa": taxa, "reference_genomes": sum(1 for ln in open(combined)
+                                                         if ln.startswith(">")),
+                   "levels": levels, "launches": ab_launches, "summary": summary,
+                   "rows_changed_at_100": moved},
+         zymo={"assigned": len(assigned),
+               "species": sum(1 for v in assigned.values() if v[1] == "species")},
+         pairs=pairs, nvidia_smi=nvidia_smi("name,power.limit"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2269,6 +2548,7 @@ def main() -> int:
         lca_stats = phase_lca(args.seed, gut, sms, clock_mhz * 1e6)
         db = phase_db(tmp, sms, clock_mhz * 1e6)
         phase_eval(tmp, args.seed)
+        phase_harness(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -6,8 +6,12 @@ codes: ``run`` and ``legacy`` (one sample end to end), ``sketch`` (sketch
 DBs, ``.npz`` or Mash ``.msh``), ``index`` (a minimizer index),
 ``taxonomy`` (``taxonomy_hierarchy.tsv`` from a taxdump), ``prune-cache``,
 ``eval`` (score a run against the truth; a contig remap runs on the
-device), ``diag`` (PAF targets against the id map), and the dataset tools
-``subset``, ``testdataset`` and ``cami-subsets``. One difference: ``--backend`` defaults to ``device``, the
+device), ``diag`` (PAF targets against the id map), the dataset tools
+``subset``, ``testdataset`` and ``cami-subsets``, and the experiment
+harnesses ``bench`` (a manifest of samples x tools: run, evaluate,
+aggregate), ``case`` (the case study), ``ablation`` (the reference-DB
+ablation), ``truth build-zymo`` and ``fetch`` (a manifest's ``*_url``
+assets). One difference: ``--backend`` defaults to ``device``, the
 port's name for the JAX package's ``jax`` backend (which is accepted as
 the same).
 
@@ -28,16 +32,7 @@ import sys
 from typing import List, Optional, Sequence
 
 from hymet_tpu_torch.utils.config import RunConfig
-
-PLATFORMS = {"": "cuda", "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
-
-
-def device_from_env() -> str:
-    """The torch device ``HYMET_PLATFORM`` names (see the module note)."""
-    platform = os.environ.get("HYMET_PLATFORM", "")
-    if platform not in PLATFORMS:
-        raise ValueError(f"HYMET_PLATFORM={platform!r}: use gpu, cuda or cpu")
-    return PLATFORMS[platform]
+from hymet_tpu_torch.utils.device import device_from_env
 
 
 def _plan(args, lines: List[str]) -> bool:
@@ -153,6 +148,86 @@ def command_prune_cache(args) -> int:
     for p in removed:
         print(f"[hymet-tpu] {'would remove' if args.no_delete else 'removed'} {p}")
     return 0
+
+
+def command_bench(args) -> int:
+    if _plan(
+        args,
+        [
+            f"bench: manifest={args.manifest} tools={args.tools} "
+            f"max_samples={args.max_samples} resume={args.resume}"
+        ],
+    ):
+        return 0
+    from hymet_tpu_torch.harness.bench import run_bench
+
+    return run_bench(
+        manifest=args.manifest,
+        tools=(args.tools or "hymet_tpu").split(","),
+        max_samples=args.max_samples,
+        out_root=args.out,
+        resume=args.resume,
+        jobs=args.jobs,
+        threads=args.threads,
+    )
+
+
+def command_case(args) -> int:
+    if _plan(args, [f"case: manifest={args.manifest} out={args.out}"]):
+        return 0
+    from hymet_tpu_torch.harness.case import run_case
+
+    return run_case(manifest=args.manifest, out_root=args.out, threads=args.threads)
+
+
+def command_ablation(args) -> int:
+    if _plan(
+        args,
+        [
+            f"ablation: sample={args.sample} taxa={args.taxa} levels={args.levels} "
+            f"fasta={args.fasta} out={args.out}"
+        ],
+    ):
+        return 0
+    from hymet_tpu_torch.harness.ablation import run_ablation
+
+    return run_ablation(
+        sample=args.sample,
+        taxa=(args.taxa or "").split(",") if args.taxa else None,
+        levels=[float(x) for x in (args.levels or "0,0.5,1.0").split(",")],
+        seqmap=args.seqmap,
+        fasta=args.fasta,
+        out_root=args.out,
+        threads=args.threads,
+    )
+
+
+def command_truth_build_zymo(args) -> int:
+    if _plan(
+        args,
+        [f"truth build-zymo: contigs={args.contigs} paf={args.paf}"],
+    ):
+        return 0
+    from hymet_tpu_torch.harness.zymo_truth import build_zymo_truth
+
+    build_zymo_truth(
+        contigs=args.contigs,
+        paf=args.paf,
+        seqmap=args.seqmap,
+        out_contigs=args.out_contigs,
+        out_profile=args.out_profile,
+    )
+    return 0
+
+
+def command_fetch(args) -> int:
+    if _plan(args, [f"fetch: manifest={args.manifest}"]):
+        return 0
+    from hymet_tpu_torch.harness.fetch import fetch_manifest_assets
+
+    ok, failed = fetch_manifest_assets(args.manifest)
+    print(f"[hymet-tpu] fetched/present: {len(ok)}, failed: {len(failed)}")
+    return 1 if failed else 0
 
 
 def command_eval(args) -> int:
@@ -314,6 +389,49 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dry-run", action="store_true")
     p.set_defaults(func=command_taxonomy)
 
+    p = sub.add_parser("bench", help="Run the CAMI benchmark harness")
+    p.add_argument("--manifest")
+    p.add_argument("--tools")
+    p.add_argument("--max-samples", type=int)
+    p.add_argument("--out")
+    p.add_argument("--no-build", action="store_true")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument(
+        "--jobs",
+        type=int,
+        default=1,
+        help="Parallel (sample, tool) cells (CPU-backend / baseline runs)",
+    )
+    _common(p)
+    p.set_defaults(func=command_bench)
+
+    p = sub.add_parser("case", help="Run the case-study harness")
+    p.add_argument("--manifest")
+    p.add_argument("--out")
+    _common(p)
+    p.set_defaults(func=command_case)
+
+    p = sub.add_parser("ablation", help="Reference-database ablation experiment")
+    p.add_argument("--sample")
+    p.add_argument("--taxa")
+    p.add_argument("--levels")
+    p.add_argument("--seqmap")
+    p.add_argument("--fasta")
+    p.add_argument("--out")
+    _common(p)
+    p.set_defaults(func=command_ablation)
+
+    p = sub.add_parser("truth", help="Truth-set utilities")
+    tsub = p.add_subparsers(dest="truth_command", required=True)
+    tz = tsub.add_parser("build-zymo", help="Build Zymo mock community truth tables")
+    tz.add_argument("--contigs", required=True)
+    tz.add_argument("--paf", required=True)
+    tz.add_argument("--seqmap")
+    tz.add_argument("--out-contigs", required=True)
+    tz.add_argument("--out-profile", required=True)
+    tz.add_argument("--dry-run", action="store_true")
+    tz.set_defaults(func=command_truth_build_zymo)
+
     p = sub.add_parser("legacy", help="Legacy pipeline (main.pl semantics)")
     _run_flags(p)
     _common(p)
@@ -341,6 +459,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", required=True)
     p.add_argument("--dry-run", action="store_true")
     p.set_defaults(func=command_eval)
+
+    p = sub.add_parser("fetch", help="Fetch manifest *_url assets (idempotent)")
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--dry-run", action="store_true")
+    p.set_defaults(func=command_fetch)
 
     p = sub.add_parser("subset", help="Subset a FASTA by seq/base caps")
     p.add_argument("input")

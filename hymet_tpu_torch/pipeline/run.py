@@ -25,9 +25,10 @@ Every stage is idempotent: outputs found on disk are reused (the
 reference's stage-skip semantics). Each stage's seconds (ending in a
 device synchronize) land in ``timings`` and ``metadata.json``.
 
-Not here: the JAX package's multihost and mesh paths (``db_shards > 1``
-raises; ROADMAP B11), its ``jax.profiler`` hook and
-``HYMET_PROFILE_WEIGHT=length`` (raises; ROADMAP queue A).
+``HYMET_PROFILE_WEIGHT=length`` weights the CAMI profile by contig
+length, as the JAX run does. Not here: the JAX package's multihost and
+mesh paths (``db_shards > 1`` raises; ROADMAP B11) and its
+``jax.profiler`` hook.
 """
 
 from __future__ import annotations
@@ -140,9 +141,6 @@ class ClassificationRun:
                 "runs on one (ROADMAP B11)")
         if config.classifier_backend not in (*BACKENDS, "legacy"):
             raise ValueError(f"unknown classifier_backend {config.classifier_backend!r}")
-        if os.environ.get("HYMET_PROFILE_WEIGHT", "count") == "length":
-            raise NotImplementedError("HYMET_PROFILE_WEIGHT=length is not ported yet "
-                                      "(ROADMAP queue A)")
         self.cfg = config
         self.dev = resolve_device(device)
         self.workdir = os.path.join(config.outdir, "work")
@@ -415,7 +413,18 @@ class ClassificationRun:
         cfg = self.cfg
         sample = os.path.splitext(os.path.basename(cfg.input_fasta))[0]
         out = os.path.join(cfg.outdir, f"hymet.{sample}.cami.tsv")
-        self._timed("export", lambda: classified_to_cami(classified, self._taxdb(), out, sample))
+
+        def run():
+            # HYMET_PROFILE_WEIGHT=length emits an abundance-weighted
+            # profile (CAMI convention); the default "count" keeps byte
+            # parity with the reference converter (tools/hymet2cami.py).
+            lengths = None
+            if os.environ.get("HYMET_PROFILE_WEIGHT", "count") == "length":
+                names, seqs = self._contigs  # read once by _stage_contigs
+                lengths = {name: len(seq) for name, seq in zip(names, seqs)}
+            return classified_to_cami(classified, self._taxdb(), out, sample, lengths=lengths)
+
+        self._timed("export", run)
         return out
 
     def _write_metadata(self) -> None:

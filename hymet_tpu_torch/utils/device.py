@@ -3,9 +3,13 @@ the CPU: there is no silent fallback."""
 
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import torch
+
+# HYMET_PLATFORM, the variable the JAX command line reads, -> torch device
+PLATFORMS = {"": "cuda", "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
@@ -18,3 +22,13 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
             "False; pass device='cpu' to run the plain CPU path"
         )
     return dev
+
+
+def device_from_env() -> str:
+    """The torch device ``HYMET_PLATFORM`` names: unset, ``gpu`` or ``cuda``
+    the card (resolving it fails without one), ``cpu`` the plain CPU path;
+    anything else is an error."""
+    platform = os.environ.get("HYMET_PLATFORM", "")
+    if platform not in PLATFORMS:
+        raise ValueError(f"HYMET_PLATFORM={platform!r}: use gpu, cuda or cpu")
+    return PLATFORMS[platform]

@@ -1,14 +1,15 @@
 """hymet_tpu_torch's command line against hymet_tpu's on the CPU: the
-``--dry-run`` plan lines of run, legacy, sketch, index, taxonomy,
-prune-cache, eval, diag, subset, testdataset and cami-subsets (equal but
-for the documented ``classifier_backend`` default);
+``--dry-run`` plan lines of all 16 subcommands (equal but for the
+documented ``classifier_backend`` default);
 ``RunConfig.from_env`` under a patched environment; ``HYMET_PLATFORM=cpu
 python -m hymet_tpu_torch sketch`` writing the JAX CLI's ``.npz`` arrays
 and ``.msh`` bytes; ``run`` and ``legacy`` on the world of
 tests/test_pipeline_e2e.py writing the JAX CLI's stage files byte for
 byte; index, taxonomy and prune-cache runs; ``eval`` and ``diag`` on the
 gut sample and the dataset tools through both command lines with the same
-files; and the device rule (no CPU fallback, an unknown platform refused,
+files; bench, case, ablation, truth build-zymo and fetch through both
+command lines with the same files, messages and exit codes; and the
+device rule (no CPU fallback, an unknown platform refused,
 ``eval`` refused without ``HYMET_PLATFORM=cpu`` on a machine without a
 card)."""
 
@@ -91,6 +92,20 @@ RUN_ARGS = ["--contigs", "c.fna", "--out", "o", "--threads", "2", "--cand-max", 
      "0.2", "--mutation-rate", "0.1", "--seed", "4", "--dry-run"],
     ["cami-subsets", "--fasta", "c.fna", "--mapping", "m.tsv", "--taxonomy-dir", "tax", "--out",
      "cs", "--dry-run"],
+    ["bench", "--dry-run"],
+    ["bench", "--manifest", "m.tsv", "--tools", "hymet_tpu,kraken2", "--max-samples", "2", "--out",
+     "b", "--no-build", "--resume", "--jobs", "3", "--threads", "4", "--cache-root", "cc",
+     "--dry-run"],
+    ["case", "--dry-run"],
+    ["case", "--manifest", "m.tsv", "--out", "cs", "--threads", "2", "--dry-run"],
+    ["ablation", "--dry-run"],
+    ["ablation", "--sample", "s", "--taxa", "1,2", "--levels", "0,1", "--seqmap", "sm.tsv",
+     "--fasta", "r.fna", "--out", "ab", "--keep-work", "--dry-run"],
+    ["truth", "build-zymo", "--contigs", "c.fna", "--paf", "r.paf", "--out-contigs", "tc.tsv",
+     "--out-profile", "tp.tsv", "--dry-run"],
+    ["truth", "build-zymo", "--contigs", "c.fna", "--paf", "r.paf", "--seqmap", "sm.tsv",
+     "--out-contigs", "tc.tsv", "--out-profile", "tp.tsv", "--dry-run"],
+    ["fetch", "--manifest", "m.tsv", "--dry-run"],
 ], ids=lambda a: "-".join(x for x in a if not x.startswith(("--", "c.", "o")))[:40])
 @pytest.mark.parametrize("env", ["clean", "patched"])
 def test_dry_run_lines_equal_jax(clean_env, capsys, argv, env):
@@ -307,11 +322,14 @@ def test_card_platforms_do_not_fall_back_to_the_cpu(clean_env, tmp_path, capsys,
 
 
 def test_usage_errors_exit_like_jax(clean_env, capsys):
-    for argv in ([], ["run"], ["sketch", "--out", "x.npz"], ["bench", "--dry-run"],
+    for argv in ([], ["run"], ["sketch", "--out", "x.npz"], ["truth", "--dry-run"],
+                 ["fetch", "--dry-run"], ["truth", "build-zymo", "--paf", "p", "--dry-run"],
+                 ["bench", "--jobs", "two", "--dry-run"], ["serve", "--dry-run"],
                  ["run", "--contigs", "c", "--out", "o", "--backend", "tpu"]):
-        with pytest.raises(SystemExit) as t:
-            tcli.main(argv)
-        assert t.value.code == 2
+        for main in (jcli.main, tcli.main):
+            with pytest.raises(SystemExit) as t:
+                main(argv)
+            assert t.value.code == 2
     capsys.readouterr()
 
 
@@ -321,7 +339,8 @@ def test_module_entry_point_prints_usage():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0
     for cmd in ("run", "legacy", "sketch", "index", "taxonomy", "prune-cache", "eval", "diag",
-                "subset", "testdataset", "cami-subsets"):
+                "subset", "testdataset", "cami-subsets", "bench", "case", "ablation", "truth",
+                "fetch"):
         assert cmd in out.stdout
 
 
@@ -448,3 +467,132 @@ def test_dataset_tools_write_the_jax_files(clean_env, tmp_path, capsys):
     assert len(files) == 1 + 5 + 18
     for name in files:
         assert filecmp.cmp(tmp_path / "t" / name, tmp_path / "j" / name, shallow=False), name
+
+
+# ----------------------------------------------------------------------
+# the experiment harnesses
+
+@pytest.fixture(scope="module")
+def harness_cli(world, cli_runs):
+    """bench, case and ablation through both command lines on the e2e
+    world, with each package's cache of the run above (CACHE_ROOT), the
+    world's files from the environment, as a bench user sets them."""
+    from test_harness_e2e import _truth_files
+    from test_torch_harness_e2e import _ablation_inputs
+
+    tmp, _ = cli_runs
+    tmp = tmp / "harness"
+    tmp.mkdir()
+    truth_contigs, truth_profile = _truth_files(world, tmp)
+    (tmp / "m.tsv").write_text(
+        "sample_id\tcontigs_fa\ttruth_contigs_tsv\ttruth_profile_tsv\tcompare_profile\n"
+        f"e2e\t{world['query']}\t{truth_contigs}\t{truth_profile}\t{truth_profile}\n")
+    combined, seqmap = _ablation_inputs(world, tmp)
+    mp = pytest.MonkeyPatch()
+    for name in ENV_NAMES:
+        mp.delenv(name, raising=False)
+    for name, value in {"HYMET_PLATFORM": "cpu", "HYMET_NO_COMPILE_CACHE": "1",
+                        "SCREEN_CHUNK_BP": str(1 << 15), "ALIGN_BATCH_PAD": str(1 << 13),
+                        "CAND_MAX": "100", "SKETCH_DBS": world["db_path"],
+                        "GENOME_CATALOG": world["genomes_dir"],
+                        "SEQID2TAXID": world["seqid2taxid"], "TAXONOMY_DIR": world["tax_dir"],
+                        "INPUT_FASTA": world["query"]}.items():
+        mp.setenv(name, value)
+    rcs = {}
+    try:
+        for pkg, main in (("jax", jcli.main), ("torch", tcli.main)):
+            out = tmp / pkg
+            mp.setenv("CACHE_ROOT", str(tmp.parent / pkg / "cache"))
+            rcs[pkg] = [
+                main(["bench", "--manifest", str(tmp / "m.tsv"), "--tools", "hymet_tpu",
+                      "--out", str(out / "bench"), "--threads", "2"]),
+                main(["case", "--manifest", str(tmp / "m.tsv"), "--out", str(out / "case")]),
+                main(["ablation", "--sample", "e2e", "--taxa", "562,287", "--levels", "0,1",
+                      "--seqmap", seqmap, "--fasta", combined, "--out", str(out / "ablation")])]
+    finally:
+        mp.undo()
+    return tmp, rcs
+
+
+@pytest.mark.parametrize("what", ["bench", "case", "ablation"])
+def test_harness_subcommands_write_the_jax_files(harness_cli, what):
+    from test_torch_harness_e2e import _differences
+
+    tmp, rcs = harness_cli
+    assert rcs["jax"] == rcs["torch"] == [0, 0, 0]
+    assert _differences(str(tmp / "torch" / what), str(tmp / "jax" / what)) == []
+    if what == "case":
+        compare = (tmp / "torch" / "case" / "e2e" / "hymet_tpu" / "profile_compare.tsv").read_text()
+        assert compare.startswith("metric\tvalue\nsymmetric_kl_species\t")
+
+
+def test_truth_build_zymo_writes_the_jax_files(clean_env, tmp_path, capsys, mini_taxdb):
+    """truth build-zymo through both command lines (the taxonomy from
+    TAXONOMY_DIR, as the JAX command line reads it); without --seqmap both
+    exit 1 (the JAX package falls back to a path that is not there, the
+    port asks for the flag)."""
+    from test_torch_harness import _zymo_world
+
+    _zymo_world(tmp_path, mini_taxdb)
+    clean_env.setenv("TAXONOMY_DIR", str(tmp_path))
+    argv = ["truth", "build-zymo", "--contigs", str(tmp_path / "contigs.fna"), "--paf",
+            str(tmp_path / "hits.paf")]
+    for pkg, main in (("j", jcli.main), ("t", tcli.main)):
+        (tmp_path / pkg).mkdir()
+        outs = ["--out-contigs", str(tmp_path / pkg / "c.tsv"), "--out-profile",
+                str(tmp_path / pkg / "p.tsv")]
+        assert main([*argv, "--seqmap", str(tmp_path / "seqmap.tsv"), *outs]) == 0
+        assert main([*argv, *outs[:1], str(tmp_path / pkg / "c2.tsv"), *outs[2:]]) == 1
+    capsys.readouterr()
+    for name in ("c.tsv", "p.tsv"):
+        assert filecmp.cmp(tmp_path / "t" / name, tmp_path / "j" / name, shallow=False)
+    assert sorted(os.listdir(tmp_path / "t")) == ["c.tsv", "p.tsv"]
+
+
+@pytest.mark.parametrize("missing", [False, True])
+def test_fetch_subcommand_exits_like_jax(clean_env, tmp_path, capsys, missing):
+    """fetch on file:// URLs: exit 0 and the copied file when every asset
+    arrives, exit 1 when one fails; the same message."""
+    (tmp_path / "src.fna").write_text(">a\nACGT\n")
+    src = (tmp_path / ("absent.fna" if missing else "src.fna")).as_uri()
+    for pkg, main in (("j", jcli.main), ("t", tcli.main)):
+        (tmp_path / pkg).mkdir()
+        (tmp_path / pkg / "m.tsv").write_text(
+            f"sample_id\tcontigs_fa\tcontigs_url\ns1\tin/c.fna\t{src}\n")
+        assert main(["fetch", "--manifest", str(tmp_path / pkg / "m.tsv")]) == int(missing)
+        out = capsys.readouterr().out.replace(str(tmp_path / pkg), "ROOT")
+        (tmp_path / f"{pkg}.log").write_text(out)
+    assert (tmp_path / "t.log").read_text() == (tmp_path / "j.log").read_text() == (
+        "[hymet-tpu] fetch: manifest=ROOT/m.tsv\n"
+        f"[hymet-tpu] fetched/present: {int(not missing)}, failed: {int(missing)}\n")
+    assert os.path.exists(tmp_path / "t" / "in" / "c.fna") != missing
+    if not missing:
+        assert filecmp.cmp(tmp_path / "t" / "in" / "c.fna", tmp_path / "src.fna", shallow=False)
+
+
+@pytest.mark.parametrize("argv", [["bench", "--tools", "kraken2"], ["case"],
+                                  ["ablation", "--taxa", "562", "--seqmap", "SEQMAP",
+                                   "--fasta", "FASTA"]])
+@pytest.mark.parametrize("platform", [None, "gpu", "cuda"])
+def test_harness_without_a_card_is_refused(clean_env, tmp_path, capsys, argv, platform):
+    """bench, case and ablation ask for the card before any run or file:
+    here, without one, they exit 1 and write nothing; HYMET_PLATFORM=cpu
+    runs them (bench with an absent baseline tool, case and ablation
+    failing later on what they were given)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    if platform:
+        clean_env.setenv("HYMET_PLATFORM", platform)
+    (tmp_path / "c.fna").write_text(">c1\nACGT\n")
+    (tmp_path / "m.tsv").write_text(f"sample_id\tcontigs_fa\ns1\t{tmp_path / 'c.fna'}\n")
+    (tmp_path / "s.tsv").write_text("c1\t562\n")
+    argv = [a.replace("SEQMAP", str(tmp_path / "s.tsv")).replace("FASTA", str(tmp_path / "c.fna"))
+            for a in argv]
+    out = str(tmp_path / "out")
+    argv = [*argv, "--out", out] + (["--manifest", str(tmp_path / "m.tsv")]
+                                    if argv[0] in ("bench", "case") else [])
+    assert tcli.main(argv) == 1
+    assert "CUDA" in capsys.readouterr().err and not os.path.exists(out)
+    clean_env.setenv("HYMET_PLATFORM", "cpu")
+    clean_env.setenv("PATH", str(tmp_path))
+    assert tcli.main(argv) == (0 if argv[0] == "bench" else 1) and os.path.exists(out)

@@ -1,7 +1,7 @@
 """hymet_tpu_torch on the card: the hand-written kernels against their plain
 PyTorch versions (kmer_hashes bit for bit, screen_count count for count,
-and the rest) at the edge cases, the slices through them, and the sketch
-DB build against the committed DBs. These need a CUDA
+and the rest) at the edge cases, the slices through them, the sketch DB
+build against the committed DBs, and the bench harness against the CPU. These need a CUDA
 card (and nvcc) and skip without one; on the card run
 ``python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py``
 (``tests/conftest.py`` imports jax, which the port does not need)."""
@@ -475,6 +475,59 @@ def test_execute_on_card_matches_cpu(tmp_path):
                  "hymet.gut60.cami.tsv"):
         a, b = (os.path.join(outs[d][0], name) for d in ("cuda", "cpu"))
         assert os.path.getsize(a) > 0 and filecmp.cmp(a, b, shallow=False), name
+
+
+@pytest.mark.gpu
+def test_bench_on_card_matches_cpu(tmp_path, monkeypatch):
+    """run_bench of 60 gut contigs (with the committed truth files, 5
+    candidates) under HYMET_PLATFORM=cuda and =cpu: the same files, byte
+    for byte, but the measured columns of runtime_memory.tsv, the run's
+    own metadata.json, the output root in _debug_info.txt and the figures
+    (none where matplotlib is missing); the card's run through the LCA
+    kernel."""
+    _need_card()
+    from hymet_tpu_torch.harness.bench import run_bench
+    from hymet_tpu_torch.ops import lca
+
+    gut = os.path.join(WORLD, "data", "camisyn_gut")
+    names, seqs = read_fasta(os.path.join(gut, "contigs.fna"))
+    sample = tmp_path / "gut60.fna"
+    sample.write_text("".join(f">{n}\n{s.decode()}\n" for n, s in zip(names[:60], seqs[:60])))
+    (tmp_path / "m.tsv").write_text(
+        "sample_id\tcontigs_fa\ttruth_contigs_tsv\ttruth_profile_tsv\n"
+        f"gut60\t{sample}\t{gut}/truth_contigs.tsv\t{gut}/truth_profile.tsv\n")
+    for name, value in {"SKETCH_DBS": os.pathsep.join(os.path.join(WORLD, f"{label}.npz")
+                                                      for label in LABELS),
+                        "GENOME_CATALOG": os.path.join(WORLD, "genomes"),
+                        "SEQID2TAXID": os.path.join(WORLD, "acc2taxid.tsv"),
+                        "TAXONOMY_DIR": os.path.join(WORLD, "taxonomy"), "CAND_MAX": "5"}.items():
+        monkeypatch.setenv(name, value)
+    launches = {}
+    for platform in ("cuda", "cpu"):
+        monkeypatch.setenv("HYMET_PLATFORM", platform)
+        monkeypatch.setenv("CACHE_ROOT", str(tmp_path / f"cache_{platform}"))
+        lca.weighted_lca.launches = 0
+        assert run_bench(str(tmp_path / "m.tsv"), ["hymet_tpu"],
+                         out_root=str(tmp_path / platform)) == 0
+        launches[platform] = lca.weighted_lca.launches
+    assert launches["cuda"] > 0 and launches["cpu"] == 0
+    files = {}
+    for platform in ("cuda", "cpu"):
+        root = tmp_path / platform
+        files[platform] = sorted(os.path.relpath(os.path.join(d, f), root)
+                                 for d, _, fs in os.walk(root) for f in fs
+                                 if not d.endswith("figures"))
+    assert files["cuda"] == files["cpu"] and "gut60/hymet_tpu/eval/profile_summary.tsv" in files["cpu"]
+    for rel in files["cpu"]:
+        a, b = tmp_path / "cuda" / rel, tmp_path / "cpu" / rel
+        if rel == "runtime_memory.tsv":
+            assert [ln.split("\t")[:3] for ln in a.read_text().splitlines()] == [
+                ln.split("\t")[:3] for ln in b.read_text().splitlines()]
+        elif rel.endswith("_debug_info.txt"):  # names the files under each root
+            assert a.read_text().replace(str(tmp_path / "cuda"), "ROOT") == b.read_text().replace(
+                str(tmp_path / "cpu"), "ROOT"), rel
+        elif rel != "gut60/hymet_tpu/work_out/metadata.json":
+            assert filecmp.cmp(a, b, shallow=False), rel
 
 
 # ----------------------------------------------------------------------

@@ -87,6 +87,16 @@ EVAL_MODULES = [
 ]
 
 
+HARNESS_MODULES = [
+    "hymet_tpu_torch.utils.device", "hymet_tpu_torch.harness", "hymet_tpu_torch.harness.manifest",
+    "hymet_tpu_torch.harness.measure", "hymet_tpu_torch.harness.aggregate",
+    "hymet_tpu_torch.harness.baselines", "hymet_tpu_torch.harness.plots",
+    "hymet_tpu_torch.harness.fetch", "hymet_tpu_torch.harness.bench",
+    "hymet_tpu_torch.harness.case", "hymet_tpu_torch.harness.ablation",
+    "hymet_tpu_torch.harness.zymo_truth",
+]
+
+
 _IMPORT_EACH_ALONE = r"""
 import importlib, json, os, sys, traceback
 
@@ -111,13 +121,13 @@ print(json.dumps(results))
 @pytest.fixture(scope="module")
 def alone():
     """Exit code of importing each module of ALIGN_MODULES, RUN_MODULES,
-    CLI_MODULES and EVAL_MODULES alone, with jax and hymet_tpu blocked (0: imported, pulling in
-    neither), from one interpreter that forks a child a module."""
+    CLI_MODULES, EVAL_MODULES and HARNESS_MODULES alone, with jax and hymet_tpu blocked (0:
+    imported, pulling in neither), from one interpreter that forks a child a module."""
     code = _BLOCKED_IMPORTS.split("import hymet_tpu_torch")[0] + _IMPORT_EACH_ALONE
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", code, *ALIGN_MODULES, *RUN_MODULES,
-                          *CLI_MODULES, *EVAL_MODULES], cwd=REPO,
+                          *CLI_MODULES, *EVAL_MODULES, *HARNESS_MODULES], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     return json.loads(out.stdout.strip().splitlines()[-1]), out.stderr
@@ -153,6 +163,15 @@ def test_eval_module_imports_without_jax_or_reference_package(alone, module):
     """Each module of the evaluator and dataset-tools slice, imported alone
     with jax and hymet_tpu blocked, pulls in neither (the converters carry
     their own copy of the JAX harness's CAMI writer)."""
+    codes, stderr = alone
+    assert codes[module] == 0, stderr
+
+
+@pytest.mark.parametrize("module", HARNESS_MODULES)
+def test_harness_module_imports_without_jax_or_reference_package(alone, module):
+    """Each module of the experiment harnesses (and the device rule they
+    share with the command line), imported alone with jax and hymet_tpu
+    blocked, pulls in neither (plots imports matplotlib only to draw)."""
     codes, stderr = alone
     assert codes[module] == 0, stderr
 
@@ -247,6 +266,29 @@ def test_eval_entry_points_default_to_the_card(tmp_path):
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_harness_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    """run_bench, run_case and run_ablation with HYMET_PLATFORM unset ask
+    for CUDA and raise here, where there is no card, before writing."""
+    _no_card()
+    from hymet_tpu_torch.harness.ablation import run_ablation
+    from hymet_tpu_torch.harness.bench import run_bench
+    from hymet_tpu_torch.harness.case import run_case
+
+    monkeypatch.delenv("HYMET_PLATFORM", raising=False)
+    (tmp_path / "m.tsv").write_text("sample_id\tcontigs_fa\n")
+    (tmp_path / "r.fna").write_text(">r\nACGT\n")
+    out = str(tmp_path / "out")
+    for call in (
+        lambda: run_bench(str(tmp_path / "m.tsv"), ["hymet_tpu"], out_root=out),
+        lambda: run_case(str(tmp_path / "m.tsv"), out_root=out),
+        lambda: run_ablation("s", ["1"], [0.0], str(tmp_path / "m.tsv"), str(tmp_path / "r.fna"),
+                             out_root=out),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not os.path.exists(out)
 
 
 def test_chip_smoke_refuses_to_run_without_card():

@@ -4,7 +4,8 @@ kbp, 7 contigs) with the same RunConfig: every stage file byte for byte,
 the cached reference too; the reference cache and the resident aligner on
 a second run; the first-hit fallback for a data error and not for a
 kernel or CUDA error; the max_secondary check; the legacy classifier's
-run; what the port refuses."""
+run; the length-weighted profile (HYMET_PROFILE_WEIGHT=length); what the
+port refuses."""
 
 import dataclasses
 import filecmp
@@ -211,6 +212,36 @@ def test_legacy_run_matches_jax(world, runs, tmp_path):
                            shallow=False), name
     assert not filecmp.cmp(os.path.join(tcfg.outdir, "classified_sequences.tsv"),
                            os.path.join(trun.cfg.outdir, "classified_sequences.tsv"), shallow=False)
+
+
+def test_length_weighted_profile_matches_jax(world, tmp_path, monkeypatch):
+    """HYMET_PROFILE_WEIGHT=length (CAMI abundance weighting): both
+    packages' whole runs on the world's contigs cut to 8000 .. 3000 bp
+    write the same classification and profile bytes, and the profile is not
+    the contig-count one of the same classification."""
+    from hymet_tpu_torch.evalx.cami import classified_to_cami
+    from hymet_tpu_torch.io.fasta import read_fasta
+    from hymet_tpu_torch.taxonomy.db import TaxonomyDB
+
+    names, seqs = read_fasta(world["query"])
+    sample = tmp_path / "sample.fna"
+    sample.write_text("".join(f">{n}\n{q[:8000 - 1000 * i].decode()}\n"
+                              for i, (n, q) in enumerate(zip(names, seqs))))
+    monkeypatch.setenv("HYMET_PROFILE_WEIGHT", "length")
+    jcfg = _config(world, tmp_path / "jax")
+    jcfg.input_fasta, jcfg.cache_root = str(sample), str(tmp_path / "jcache")
+    JRun(jcfg).execute()
+    tcfg = _tcfg(world, tmp_path / "torch", tmp_path / "tcache")
+    tcfg.input_fasta = str(sample)
+    TRun(tcfg, device="cpu").execute()
+    for name in ("classified_sequences.tsv", "hymet.sample.cami.tsv"):
+        assert filecmp.cmp(os.path.join(tcfg.outdir, name), os.path.join(jcfg.outdir, name),
+                           shallow=False), name
+    counted = tmp_path / "counted.cami.tsv"
+    taxdb = TaxonomyDB.from_hierarchy_tsv(os.path.join(world["tax_dir"], "taxonomy_hierarchy.tsv"))
+    assert classified_to_cami(os.path.join(tcfg.outdir, "classified_sequences.tsv"), taxdb,
+                              str(counted), "sample") == 6
+    assert counted.read_text() != open(os.path.join(tcfg.outdir, "hymet.sample.cami.tsv")).read()
 
 
 def test_jax_backend_name_is_the_device_backend(world, runs, tmp_path):

@@ -168,9 +168,36 @@ Phases, each printed as one JSON line with its seconds:
              The bench and the ablation catch a run's failure and go on, as
              the JAX harness does, so the phase decides from files and
              launch counts, never from an exit code alone.
+13. sharded — the reference sharded over a 2 x 4 ("data", "db") mesh of
+             the card named eight times (the counterpart of XLA's virtual
+             devices): (a) ``sharded_topk`` on the card equal to the CPU's
+             (65,536 scores with ties, k = 1 .. all); (b) the chunked
+             ``ShardedScreenEngine`` screen of the gut contigs against
+             merged sketch1-3 with every launch count set to 0 just before
+             and read just after: identity, shared, median and the window
+             total equal to the single-device ``ScreenEngine``'s on the
+             staged batches and to the plain count's, and ``screen_count``
+             launched once a batch and shard; (c) ``ClassificationRun
+             .execute`` on the gut sample at ``db_shards = 4`` with
+             ``mesh_devices`` the card eight times and a cold cache, its
+             counts set to 0 just before and read just after:
+             ``selected_genomes.txt`` equal to phase 8's, and the PAF and
+             the classified TSV equal to a re-run of its align stage
+             (``ShardedMinimizerAligner`` with the plain versions, all 1000
+             contigs) classified on the CPU; (d) the stage split and each
+             shard's launches (counted inside ``ScreenEngine.update_staged``
+             and ``MinimizerAligner._dispatch_fused``): every screen shard
+             launched ``screen_count``, every index shard ``minimizers``,
+             ``anchors`` and ``chains`` at least once a group of 64
+             contigs; (e) as a fact, not a gate, how many classified rows
+             differ from phase 8's single-device run (``max_occ`` applies to
+             each shard's index alone). Then the sharded ``map_batch`` of
+             the 1000 contigs and the one-device one (unstaged, the same
+             index): 3 timed runs each and one trace (device busy, idle).
 
-Then the card's name and power limit as nvidia-smi prints them, one JSON
-line with the kernels' numbers, and as the last line
+Then the script's seconds (phase "total"), the card's name and power
+limit as nvidia-smi prints them, one JSON line with the kernels' numbers
+(``sharded_launches``: phase 13's run), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
 Outputs go to a temporary directory outside the repository.
 """
@@ -190,6 +217,8 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
+from contextlib import ExitStack
 from unittest import mock
 
 import numpy as np
@@ -201,7 +230,7 @@ from hymet_tpu_torch.harness import zymo_truth
 from hymet_tpu_torch.io import sketchdb
 from hymet_tpu_torch.io.fasta import encode_seq, iter_fasta, pack_code_batch, read_fasta
 from hymet_tpu_torch.io.minimizer_index import MinimizerIndex, _row_batches
-from hymet_tpu_torch.io.paf import parse_paf_for_classification
+from hymet_tpu_torch.io.paf import parse_paf_for_classification, write_paf
 from hymet_tpu_torch.io.sketchdb import SketchDB, build_sketch_db, load_sketch_db
 from hymet_tpu_torch.models.legacy_lca import classify_paf_legacy
 from hymet_tpu_torch.models.aligner import AlignerConfig, MinimizerAligner, plan_query_groups
@@ -216,10 +245,13 @@ from hymet_tpu_torch.ops.hash_kernels import count_hashes, screen_count_torch
 from hymet_tpu_torch.ops.hashing import SIGN, kmer_hashes_torch, unpack_code_batch
 from hymet_tpu_torch.ops.minimizer import extract_minimizers_numpy, extract_minimizers_torch
 from hymet_tpu_torch.ops.sketch import ScreenEngine, flat_index_device
+from hymet_tpu_torch.parallel import make_mesh, sharded_topk
+from hymet_tpu_torch.parallel.align import ShardedMinimizerAligner
+from hymet_tpu_torch.parallel.screen import ShardedScreenEngine
 from hymet_tpu_torch.pipeline.align_stage import run_align_stage
 from hymet_tpu_torch.pipeline.candidates import limit_candidates_files
 from hymet_tpu_torch.pipeline.run import ClassificationRun
-from hymet_tpu_torch.pipeline.screen_stage import run_screen_stage
+from hymet_tpu_torch.pipeline.screen_stage import run_screen_stage, stream_screen
 from hymet_tpu_torch.pipeline.staged import StagedContigs
 from hymet_tpu_torch.taxonomy.idmap import IdentifierMap
 from hymet_tpu_torch.utils.config import RunConfig
@@ -2515,6 +2547,190 @@ def phase_harness(tmp: str) -> None:
          pairs=pairs, nvidia_smi=nvidia_smi("name,power.limit"))
 
 
+SHARDED_MESH = (2, 4)  # ("data", "db") of phase 13: db_shards = 4 over 8 devices
+SHARDED_KERNELS = ("screen_count", "minimizers", "anchors", "chains")
+
+
+def per_shard_launches(log: dict):
+    """Context in which each shard's launches are counted apart: the launch
+    counts that ScreenEngine.update_staged (a shard's screen_count) and
+    MinimizerAligner._dispatch_fused (a shard's minimizers, anchors and
+    chains) add are summed in log[(stage, the shard's first reference)]."""
+    real_update, real_dispatch = ScreenEngine.update_staged, MinimizerAligner._dispatch_fused
+
+    def update_staged(self, *args):
+        before = hash_kernels.screen_count.launches
+        real_update(self, *args)
+        log.setdefault(("screen", self.db.names[0]), Counter())["screen_count"] += (
+            hash_kernels.screen_count.launches - before)
+
+    def dispatch(self, *args):
+        before = align_launches()
+        out = real_dispatch(self, *args)
+        shard = log.setdefault(("align", self.index.names[0]), Counter())
+        for name, n in align_launches().items():
+            shard[name] += n - before[name]
+        return out
+
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(ScreenEngine, "update_staged", update_staged))
+    stack.enter_context(mock.patch.object(MinimizerAligner, "_dispatch_fused", dispatch))
+    return stack
+
+
+def same_screen(got, want, what: str) -> None:
+    """Identity (float32 bits), shared, median and the window total."""
+    ident = np.asarray(want.identity, dtype=np.float32)
+    if not (np.array_equal(np.asarray(got.identity, dtype=np.float32).view(np.uint32),
+                           ident.view(np.uint32))
+            and np.array_equal(got.shared, want.shared) and np.array_equal(got.median, want.median)
+            and got.total_query_kmers == want.total_query_kmers):
+        raise AssertionError(f"{what}: the sharded screen differs")
+
+
+def classified_rows(path: str) -> dict:
+    with open(path, newline="") as f:
+        rows = f.read().split("\r\n")[1:-1]
+    return {r.split("\t", 1)[0]: r for r in rows}
+
+
+def phase_sharded(tmp: str, seed: int, cfg: RunConfig) -> dict:
+    """Phase 13: the reference sharded over a 2x4 mesh of the card named
+    eight times. (a) sharded_topk on the card against the CPU; (b) the
+    sharded screen of the gut contigs against merged sketch1-3 against the
+    single-device engine and the plain count; (c) execute at db_shards = 4
+    against phase 8's selection and a re-run of its align stage with the
+    plain versions; (d) each shard's launches; (e) the rows that differ
+    from phase 8's run."""
+    t0 = time.perf_counter()
+    card = [torch.device("cuda", 0)] * 8
+    mesh = make_mesh(*SHARDED_MESH, devices=card)
+    cpu_mesh = make_mesh(*SHARDED_MESH, devices=["cpu"] * 8)
+    # (a) ties on purpose: 50 distinct values over 65,536 scores
+    rng = np.random.default_rng(seed)
+    scores = rng.integers(0, 50, 1 << 16).astype(np.float32)
+    for k in (1, 100, 5000, 1 << 16):
+        got = sharded_topk(mesh, torch.from_numpy(scores).cuda(), k)
+        want = sharded_topk(cpu_mesh, torch.from_numpy(scores), k)
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise AssertionError(f"sharded_topk on the card differs from the CPU at k={k}")
+
+    # (b) the chunked sharded screen, counted, against the single-device
+    # engine on the staged batches with the kernel and with the plain count
+    merged = SketchDB.concat(load_world_dbs())
+    batches = []
+    real_update = ShardedScreenEngine.update_codes_packed  # what stream_screen calls
+    torch.cuda.synchronize()
+    zero_launches()
+    t = time.perf_counter()
+    with mock.patch.object(ShardedScreenEngine, "update_codes_packed",
+                           lambda self, codes: batches.append(1) or real_update(self, codes)):
+        sharded = stream_screen(merged, [CONTIGS], chunk_bp=cfg.screen_chunk_bp, mesh=mesh)
+    torch.cuda.synchronize()
+    screen_s = time.perf_counter() - t
+    screen_launches = hash_kernels.screen_count.launches
+    staged = stage_contigs(cfg)
+    single = stream_screen(merged, [CONTIGS], staged=staged, device="cuda")
+    with counting_with(screen_count_torch):
+        plain = stream_screen(merged, [CONTIGS], staged=staged, device="cuda")
+    same_screen(sharded, single, "against the single-device engine")
+    same_screen(sharded, plain, "against the plain count")
+    if screen_launches != SHARDED_MESH[1] * len(batches):
+        raise AssertionError(f"{screen_launches} screen_count launches for {len(batches)} "
+                             f"batches and {SHARDED_MESH[1]} shards")
+
+    # (c) the whole run at db_shards = 4 with a cold cache
+    run_cfg = run_config(tmp)
+    run_cfg.outdir, run_cfg.cache_root = os.path.join(tmp, "sharded"), os.path.join(tmp, "sharded_cache")
+    run_cfg.db_shards = SHARDED_MESH[1]
+    shard_log: dict = {}
+    torch.cuda.synchronize()
+    zero_launches()
+    t = time.perf_counter()
+    with per_shard_launches(shard_log):
+        run = ClassificationRun(run_cfg, device="cuda", mesh_devices=card)
+        classified = run.execute()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = all_launches()
+    if run.mesh is None or run.mesh.shape != {"data": 2, "db": 4} or run.fallback_ran:
+        raise AssertionError(f"sharded run: mesh {run.mesh}, fallback {run.fallback_ran}")
+    single_run = run_config(tmp).outdir  # phase 8's
+    work = os.path.join(run_cfg.outdir, "work")
+    same_files(work, os.path.join(single_run, "work"), ["selected_genomes.txt"])
+    (key,) = os.listdir(run_cfg.cache_root)
+    cache = os.path.join(run_cfg.cache_root, key)
+    index = MinimizerIndex.load(os.path.join(cache, f"reference_minidx_k{run_cfg.align_k}"
+                                                    f"w{run_cfg.align_w}.npz"))
+    names, seqs = read_fasta(CONTIGS)
+    zero_launches()
+    t = time.perf_counter()
+    plain_aligner = ShardedMinimizerAligner(mesh, index, AlignerConfig(batch_pad=run_cfg.align_batch_pad),
+                                            ops=align_kernels.PLAIN)
+    plain_dir = os.path.join(tmp, "sharded_plain")
+    os.makedirs(plain_dir)
+    write_paf(os.path.join(plain_dir, "resultados.paf"), plain_aligner.map_batch(names, seqs))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    if any(align_launches().values()):
+        raise AssertionError(f"the plain re-run launched a kernel: {align_launches()}")
+    same_files(work, plain_dir, ["resultados.paf"])
+    plain_tsv = os.path.join(plain_dir, "classified_sequences.tsv")
+    classify_paf(os.path.join(plain_dir, "resultados.paf"), os.path.join(cache, "detailed_taxonomy.tsv"),
+                 run._hierarchy_path(), plain_tsv, device="cpu")
+    if not filecmp.cmp(classified, plain_tsv, shallow=False):
+        raise AssertionError("the sharded run's TSV differs from the plain re-run's")
+
+    # (d) every shard through every kernel of the path
+    screen_shards = [s.names[0] for s in merged.shard(SHARDED_MESH[1]) if s.n_refs]
+    align_shards = [s.names[0] for s in index.shard(SHARDED_MESH[1]) if s.n_minimizers]
+    n_groups = -(-len(seqs) // 64)
+    per_shard = {f"{stage}:{name}": dict(c) for (stage, name), c in shard_log.items()}
+    short = [n for n in screen_shards if shard_log.get(("screen", n), {}).get("screen_count", 0) <= 0]
+    short += [n for n in align_shards for kn in ("minimizers", "anchors", "chains")
+              if shard_log.get(("align", n), {}).get(kn, 0) < n_groups]
+    missing = [kn for kn in (*SHARDED_KERNELS, "lca") if launches[kn] <= 0]
+    if short or missing or len(screen_shards) != SHARDED_MESH[1] or len(align_shards) != SHARDED_MESH[1]:
+        raise AssertionError(f"shards {short} or kernels {missing} not launched: {per_shard}")
+
+    # the sharded map's wall and device time beside the one-device map of
+    # the same contigs, unstaged, on the same index (3 timed runs, 1 traced)
+    aln_cfg = AlignerConfig(batch_pad=run_cfg.align_batch_pad)
+    maps = {}
+    for tag, aligner in (("sharded", ShardedMinimizerAligner(mesh, index, aln_cfg)),
+                         ("one_device", MinimizerAligner(index, aln_cfg, device="cuda"))):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            aligner.map_batch(names, seqs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        prof = profile_run(lambda: aligner.map_batch(names, seqs),
+                           counted=((align_kernels.minimizers, "minimizer_tile_kernel"),
+                                    (align_kernels.anchors, "anchor_search_kernel")), lossy=True)
+        maps[tag] = {"s": times, "profiled_wall_s": prof["wall_s"],
+                     "device_busy_s": prof["device_busy_s"], "idle_share": prof["idle_share"],
+                     "launches": prof["launches"], "top_device_ms": prof["device_ms"][:6]}
+
+    # (e) a fact, not a gate: max_occ applies to each shard's index
+    mine = classified_rows(classified)
+    theirs = classified_rows(os.path.join(single_run, "classified_sequences.tsv"))
+    differ = sum(1 for q in set(mine) | set(theirs) if mine.get(q) != theirs.get(q))
+    with open(os.path.join(work, "resultados.paf")) as f:
+        n_records = sum(1 for _ in f)
+    emit("sharded", t0, mesh=SHARDED_MESH, topk_identical=True,
+         screen={"s": screen_s, "batches": len(batches), "screen_count": screen_launches,
+                 "identical_to_single_and_plain": True,
+                 "total_query_kmers": sharded.total_query_kmers},
+         execute_s=run_s, stage_s=run.timings, launches=launches, per_shard=per_shard,
+         groups=n_groups, paf_records=n_records, plain_align_s=plain_s, map_batch=maps,
+         paf_and_tsv_identical_to_plain=True, selected_identical_to_phase_8=True,
+         classified_rows=len(mine), rows_differing_from_phase_8=differ,
+         nvidia_smi=nvidia_smi("name,power.limit"))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2522,7 +2738,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi("name,power.limit")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2549,8 +2765,10 @@ def main() -> int:
         db = phase_db(tmp, sms, clock_mhz * 1e6)
         phase_eval(tmp, args.seed)
         phase_harness(tmp)
+        sharded = phase_sharded(tmp, args.seed, cfg)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    emit("total", t_start)
 
     print(smi)
     print(json.dumps({"kernels": [
@@ -2558,7 +2776,8 @@ def main() -> int:
         {"name": "sketch_codes", "route": "cuda",
          "source": "hymet_tpu_torch/csrc/bottom_sketch.cu",
          "replaces": "hymet_tpu/ops/sketch.py:919 with hymet_tpu/ops/pallas_kernels.py:35 fused in",
-         "launches": db["launches"]["sketch_codes"], "main_path": True, **db["sketch_codes"],
+         "launches": db["launches"]["sketch_codes"], "main_path": True,
+         "sharded_launches": sharded["sketch_codes"], **db["sketch_codes"],
          "max_abs_err": max(db["sketch_codes"]["max_abs_err"],
                             kernels["sketch_codes"]["max_abs_err"]),
          "library_ms": None},
@@ -2567,15 +2786,18 @@ def main() -> int:
         {"name": "kmer_hash", "route": "cuda", "source": "hymet_tpu_torch/csrc/kmer_hash.cu",
          "replaces": "hymet_tpu/ops/pallas_kernels.py:35",
          "launches": db["launches"]["kmer_hash"], "main_path": False,
+         "sharded_launches": sharded["kmer_hash"],
          **db["kmer_hash"], "max_abs_err": max(db["kmer_hash"]["max_abs_err"],
                                                kernels["kmer_hash"]["max_abs_err"]),
          "library_ms": None},
         {"name": "screen_count", "route": "cuda", "source": "hymet_tpu_torch/csrc/screen_count.cu",
          "replaces": "hymet_tpu/ops/pallas_kernels.py:35",
          "launches": launches["screen_count"], "main_path": True,
+         "sharded_launches": sharded["screen_count"],
          **kernels["screen_count"], "library_ms": None},
         *({"name": name, "route": "cuda", "source": f"hymet_tpu_torch/csrc/{name}.cu",
            "replaces": replaces, "launches": align_launched[name], "main_path": True,
+           "sharded_launches": sharded[name],
            **align_stats[name]}
           for name, replaces in (
               ("minimizers", "hymet_tpu/ops/minimizer.py:241"),
@@ -2583,10 +2805,11 @@ def main() -> int:
               ("chains", "hymet_tpu/models/aligner.py:709"))),
         {"name": "lca", "route": "cuda", "source": "hymet_tpu_torch/csrc/lca.cu",
          "replaces": "hymet_tpu/ops/lca.py:40", "launches": gut["launches"], "main_path": True,
+         "sharded_launches": sharded["lca"],
          **lca_stats},
         {"name": "bottom_sketch", "route": "cuda", "source": "hymet_tpu_torch/csrc/bottom_sketch.cu",
          "replaces": "hymet_tpu/ops/sketch.py:919", "launches": db["launches"]["bottom_sketch"],
-         "main_path": True, **db["bottom_sketch"],
+         "main_path": True, "sharded_launches": sharded["bottom_sketch"], **db["bottom_sketch"],
          "max_abs_err": max(db["bottom_sketch"]["max_abs_err"],
                             kernels["bottom_sketch"]["max_abs_err"])},
     ]}))

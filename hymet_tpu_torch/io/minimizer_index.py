@@ -125,6 +125,31 @@ class MinimizerIndex:
                 lengths=z["lengths"],
             )
 
+    def shard(self, n_shards: int) -> List["MinimizerIndex"]:
+        """Split by reference sequence for the ``db`` mesh axis (minimap2's
+        -I batching, but the shards are searched side by side); each
+        shard numbers its sequences from 0. The bounds are the JAX
+        package's, so each sequence lands in the same shard."""
+        S = len(self.names)
+        bounds = np.linspace(0, S, n_shards + 1).astype(int)
+        out = []
+        for i in range(n_shards):
+            lo, hi = bounds[i], bounds[i + 1]
+            mask = (self.seq_id >= lo) & (self.seq_id < hi)
+            out.append(
+                MinimizerIndex(
+                    k=self.k,
+                    w=self.w,
+                    hashes=self.hashes[mask],
+                    seq_id=self.seq_id[mask] - lo,
+                    pos=self.pos[mask],
+                    strand=self.strand[mask],
+                    names=self.names[lo:hi],
+                    lengths=self.lengths[lo:hi],
+                )
+            )
+        return out
+
 
 def _empty():
     return (np.zeros(0, dtype=np.uint64), np.zeros(0, dtype=np.int32),

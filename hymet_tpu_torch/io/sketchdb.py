@@ -138,6 +138,27 @@ class SketchDB:
             comments=[c for db in dbs for c in (db.comments or [""] * db.n_refs)],
         )
 
+    def shard(self, n_shards: int) -> List["SketchDB"]:
+        """Row-contiguous reference shards for the ``db`` mesh axis; the
+        bounds are the JAX package's, so each reference lands in the same
+        shard."""
+        out = []
+        bounds = np.linspace(0, self.n_refs, n_shards + 1).astype(int)
+        for i in range(n_shards):
+            lo, hi = bounds[i], bounds[i + 1]
+            out.append(
+                SketchDB(
+                    k=self.k,
+                    sketch_size=self.sketch_size,
+                    hashes=self.hashes[lo:hi],
+                    n_hashes=self.n_hashes[lo:hi],
+                    names=self.names[lo:hi],
+                    lengths=self.lengths[lo:hi],
+                    comments=self.comments[lo:hi] if self.comments else [],
+                )
+            )
+        return out
+
 
 def load_sketch_db(path: str) -> SketchDB:
     """Load a sketch DB by extension: ``.msh`` (Mash's Cap'n Proto files)

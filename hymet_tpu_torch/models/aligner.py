@@ -200,8 +200,9 @@ class _Chain:
     score: int = 0
 
 
-def _chains_from_rows(rows: np.ndarray, k: int) -> List[_Chain]:
-    """_Chain objects from device [n, 9] chain rows."""
+def _chains_from_rows(rows: np.ndarray, k: int, seq_offset: int = 0) -> List[_Chain]:
+    """_Chain objects from device [n, 9] chain rows; ``seq_offset`` (an
+    index shard's first sequence) makes a shard's sequence ids global."""
     arr = rows.astype(np.int64)
     out = []
     for q, s, rel, cnt, minq, maxq, minr, maxr, score in arr:
@@ -210,7 +211,7 @@ def _chains_from_rows(rows: np.ndarray, k: int) -> List[_Chain]:
         out.append(
             _Chain(
                 qid=int(q),
-                seq=int(s),
+                seq=int(s) + seq_offset,
                 rel=int(rel),
                 count=int(cnt),
                 minq=int(minq),

@@ -153,6 +153,16 @@ def binom_sf(x: int, n: int, p: float) -> float:
     return min(1.0, math.exp(total))
 
 
+def count_valid_windows(codes, k: int) -> int:
+    """Windows of k valid bases (codes < 4) in a host [B, L] code batch."""
+    arr = np.asarray(codes)
+    inv = (arr >= 4).astype(np.int32)
+    csum = np.concatenate(
+        [np.zeros((arr.shape[0], 1), np.int32), np.cumsum(inv, axis=1)], axis=1
+    )
+    return int(((csum[:, k:] - csum[:, :-k]) == 0).sum())
+
+
 class ScreenEngine:
     """Streaming mash-screen over one SketchDB on one device. Feed query
     code batches; :meth:`finalize` gives per-reference rows.
@@ -198,13 +208,7 @@ class ScreenEngine:
 
     def _count_kmers_host(self, codes) -> None:
         """Exact valid-window count (empty-DB path only)."""
-        k = self.db.k
-        arr = np.asarray(codes)
-        inv = (arr >= 4).astype(np.int32)
-        csum = np.concatenate(
-            [np.zeros((arr.shape[0], 1), np.int32), np.cumsum(inv, axis=1)], axis=1
-        )
-        self.total_query_kmers += int(((csum[:, k:] - csum[:, :-k]) == 0).sum())
+        self.total_query_kmers += count_valid_windows(codes, self.db.k)
 
     def finalize(self) -> "ScreenResult":
         identity, shared, median = screen_scores(

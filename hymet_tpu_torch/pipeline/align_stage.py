@@ -1,6 +1,6 @@
-"""The align stage (counterpart of hymet_tpu.pipeline.run.ClassificationRun._stage_align,
-single device): the candidate references' minimizer index, the contigs
-mapped onto it, ``resultados.paf``.
+"""The align stage (counterpart of hymet_tpu.pipeline.run.ClassificationRun._stage_align):
+the candidate references' minimizer index, the contigs mapped onto it,
+``resultados.paf``.
 
     run_align_stage(combined_fasta, names, seqs, workdir, cfg, staged=staged)
 
@@ -12,7 +12,10 @@ mapped onto it, ``resultados.paf``.
   ``cfg.force_download``;
 - the contigs go through :meth:`MinimizerAligner.map_batch`, on the staged
   batches when `staged` holds this plan, with `aligner` when the caller
-  holds one on this reference's index (the run's resident cache).
+  holds one on this reference's index (the run's resident cache);
+- with a ``mesh`` the index shards over it
+  (:class:`~hymet_tpu_torch.parallel.align.ShardedMinimizerAligner`) and
+  the contigs map unstaged.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Optional, Sequence
 from hymet_tpu_torch.io.minimizer_index import MinimizerIndex
 from hymet_tpu_torch.io.paf import write_paf
 from hymet_tpu_torch.models.aligner import AlignerConfig, MinimizerAligner
+from hymet_tpu_torch.parallel.align import ShardedMinimizerAligner
 from hymet_tpu_torch.utils.config import RunConfig
 
 logger = logging.getLogger("hymet_tpu_torch.align")
@@ -64,7 +68,8 @@ def run_align_stage(
     *,
     staged=None,
     device="cuda",
-    aligner: Optional[MinimizerAligner] = None,
+    aligner=None,
+    mesh=None,
 ) -> str:
     """Map the contigs (`names`, `seqs`) onto the references of
     `combined_fasta`; returns the path of ``workdir/resultados.paf``."""
@@ -75,9 +80,13 @@ def run_align_stage(
         return paf_path
     if aligner is None:
         index = load_or_build_index(combined_fasta, cfg, device)
-        aligner = MinimizerAligner(index, AlignerConfig(batch_pad=cfg.align_batch_pad),
-                                   device=device)
-    records = aligner.map_batch(names, seqs, staged=staged)
+        aln_cfg = AlignerConfig(batch_pad=cfg.align_batch_pad)
+        aligner = (ShardedMinimizerAligner(mesh, index, aln_cfg) if mesh is not None
+                   else MinimizerAligner(index, aln_cfg, device=device))
+    if mesh is not None:
+        records = aligner.map_batch(names, seqs)
+    else:
+        records = aligner.map_batch(names, seqs, staged=staged)
     os.makedirs(workdir, exist_ok=True)
     write_paf(paf_path, records)
     logger.info("alignment rows: %d", len(records))

@@ -1,12 +1,17 @@
-"""End-to-end classification run on one device: the ``run_hymet_cami.sh``
-replacement (counterpart of hymet_tpu.pipeline.run, single device).
+"""End-to-end classification run: the ``run_hymet_cami.sh`` replacement
+(counterpart of hymet_tpu.pipeline.run, one process).
 
     ClassificationRun(config, device="cuda").execute()
+
+With ``config.db_shards > 1`` (``HYMET_DB_SHARDS``) and at least that many
+devices, the screen and the aligner shard the reference over a ("data",
+"db") mesh (:mod:`hymet_tpu_torch.parallel`); with fewer devices the run
+logs a warning and runs on one.
 
 Stage layout and intermediate files mirror the reference batch script:
 
   0. upload-once contig staging (screen and align read the same device
-     batches)
+     batches; not under a mesh)
   1. sketch screen over 1..N sketch DBs -> selected_genomes.txt
      (``run_hymet_cami.sh:82-99``)
   2. candidate limiting (``:101-126``)
@@ -26,9 +31,8 @@ reference's stage-skip semantics). Each stage's seconds (ending in a
 device synchronize) land in ``timings`` and ``metadata.json``.
 
 ``HYMET_PROFILE_WEIGHT=length`` weights the CAMI profile by contig
-length, as the JAX run does. Not here: the JAX package's multihost and
-mesh paths (``db_shards > 1`` raises; ROADMAP B11) and its
-``jax.profiler`` hook.
+length, as the JAX run does. Not here: the JAX package's multihost path
+and its ``jax.profiler`` hook.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from hymet_tpu_torch.models.legacy_lca import classify_paf_legacy
 from hymet_tpu_torch.models.weighted_lca import BACKENDS, classify_paf
 from hymet_tpu_torch.ops.hash_kernels import KernelError
 from hymet_tpu_torch.ops.lca import LCA_MAX_BUCKET
+from hymet_tpu_torch.parallel.mesh import make_mesh
 from hymet_tpu_torch.pipeline.align_stage import (
     index_cache_path,
     load_or_build_index,
@@ -132,22 +137,41 @@ def _count_lines(path: str) -> int:
 class ClassificationRun:
     """One sample's run on `device` (default the card; raises without
     one). ``timings`` holds each stage's seconds; ``fallback_ran`` says
-    whether the first-hit fallback wrote the classification."""
+    whether the first-hit fallback wrote the classification.
 
-    def __init__(self, config: RunConfig, device="cuda"):
-        if config.db_shards > 1:
-            raise NotImplementedError(
-                "db_shards > 1 shards the reference DBs over several devices; the port "
-                "runs on one (ROADMAP B11)")
+    ``mesh_devices`` (keyword-only; repeats allowed) are the devices a
+    ``db_shards > 1`` mesh may use: by default every visible card for a
+    CUDA `device`, and `device` alone for the CPU (so a CPU run falls back
+    to one device, as a one-device JAX host does)."""
+
+    def __init__(self, config: RunConfig, device="cuda", *, mesh_devices=None):
         if config.classifier_backend not in (*BACKENDS, "legacy"):
             raise ValueError(f"unknown classifier_backend {config.classifier_backend!r}")
         self.cfg = config
         self.dev = resolve_device(device)
+        self.mesh = self._make_mesh(mesh_devices)
         self.workdir = os.path.join(config.outdir, "work")
         self.timings = {}
         self.fallback_ran = False
         self._staged = None  # upload-once contig batches (_stage_contigs)
         self._contigs = None  # (names, seqs) read once for both stages
+
+    def _make_mesh(self, mesh_devices):
+        """("data", "db") mesh when db_shards > 1 and enough devices exist
+        (data = devices // db_shards); None = one device."""
+        shards = self.cfg.db_shards
+        if shards <= 1:
+            return None
+        if mesh_devices is None:
+            mesh_devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                            if self.dev.type == "cuda" else [self.dev])
+        devs = list(mesh_devices)
+        if len(devs) < shards:
+            logger.warning("db_shards=%d but only %d devices; running single-device",
+                           shards, len(devs))
+            return None
+        data = max(1, len(devs) // shards)
+        return make_mesh(data=data, db=shards, devices=devs[: data * shards])
 
     # ------------------------------------------------------------------
 
@@ -184,10 +208,19 @@ class ClassificationRun:
         logger.info("[stage %s] %.2fs", name, self.timings[name])
         return out
 
+    def _query_contigs(self):
+        """(names, seqs) of the sample, read once."""
+        if self._contigs is None:
+            self._contigs = read_fasta(self.cfg.input_fasta)
+        return self._contigs
+
     def _stage_contigs(self) -> None:
         """Upload-once contig staging (pipeline/staged.py): read, pack and
-        upload the sample a single time for both device stages."""
+        upload the sample a single time for both device stages. Not under
+        a mesh: the sharded engines ship their own batches."""
         cfg = self.cfg
+        if self.mesh is not None:
+            return
 
         def run():
             qnames, qseqs = read_fasta(cfg.input_fasta)
@@ -228,6 +261,7 @@ class ClassificationRun:
                 chunk_bp=cfg.screen_chunk_bp,
                 staged=self._staged,
                 device=self.dev,
+                mesh=self.mesh,
             )
 
         self._timed("screen", run)
@@ -336,6 +370,11 @@ class ClassificationRun:
         idx_path = index_cache_path(combined, cfg)
 
         def run():
+            qnames, qseqs = self._query_contigs()
+            if self.mesh is not None:  # the sharded aligner: no resident LRU
+                run_align_stage(combined, qnames, qseqs, self.workdir, cfg, device=self.dev,
+                                mesh=self.mesh)
+                return
             aligner = _resident_aligner_get(idx_path, aln_cfg, cfg, self.dev)
             if aligner is None:
                 index = load_or_build_index(combined, cfg, self.dev)
@@ -343,7 +382,6 @@ class ClassificationRun:
                 _resident_aligner_put(idx_path, aln_cfg, cfg, self.dev, aligner)
             else:
                 logger.info("resident device index: %s", idx_path)
-            qnames, qseqs = self._contigs
             run_align_stage(combined, qnames, qseqs, self.workdir, cfg, staged=self._staged,
                             device=self.dev, aligner=aligner)
 
@@ -420,7 +458,7 @@ class ClassificationRun:
             # parity with the reference converter (tools/hymet2cami.py).
             lengths = None
             if os.environ.get("HYMET_PROFILE_WEIGHT", "count") == "length":
-                names, seqs = self._contigs  # read once by _stage_contigs
+                names, seqs = self._query_contigs()
                 lengths = {name: len(seq) for name, seq in zip(names, seqs)}
             return classified_to_cami(classified, self._taxdb(), out, sample, lengths=lengths)
 

@@ -26,6 +26,7 @@ import numpy as np
 from hymet_tpu_torch.io.fasta import encode_seq, iter_fasta
 from hymet_tpu_torch.io.sketchdb import SketchDB
 from hymet_tpu_torch.ops.sketch import ScreenEngine, ScreenResult
+from hymet_tpu_torch.parallel.screen import ShardedScreenEngine
 
 DEFAULT_PVALUE_MAX = 0.9  # mash screen -v 0.9 (mash.sh:14)
 THRESHOLD_FLOOR = Decimal("0.70")
@@ -42,6 +43,7 @@ def stream_screen(
     chunk_bp: int = 1 << 20,
     staged=None,
     device="cuda",
+    mesh=None,
 ) -> ScreenResult:
     """Stream all sequences of all query files through the screen engine.
 
@@ -49,16 +51,21 @@ def stream_screen(
     window is lost, and the chunks go to the device 8 rows at a time,
     2-bit packed.
 
-    ``staged`` (:class:`hymet_tpu_torch.pipeline.staged.StagedContigs`):
-    consume the upload-once device-resident batches instead of re-reading
-    the files; whole-contig rows carry the same k-mer multiset as the
-    overlapped chunk rows, so the counts are identical.
+    ``staged`` (:class:`hymet_tpu_torch.pipeline.staged.StagedContigs`, one
+    device only): consume the upload-once device-resident batches instead
+    of re-reading the files; whole-contig rows carry the same k-mer
+    multiset as the overlapped chunk rows, so the counts are identical.
+    With a ``mesh`` (:func:`hymet_tpu_torch.parallel.make_mesh`) the
+    db-sharded engine takes the chunked path on the mesh's devices.
     """
-    eng = ScreenEngine(db, device=device)
-    if staged is not None:
-        for packed, mask, _rows, L in staged.device:
-            eng.update_staged(packed, mask, L)
-        return eng.finalize()
+    if mesh is not None:
+        eng = ShardedScreenEngine(mesh, db)
+    else:
+        eng = ScreenEngine(db, device=device)
+        if staged is not None:
+            for packed, mask, _rows, L in staged.device:
+                eng.update_staged(packed, mask, L)
+            return eng.finalize()
     k = db.k
 
     ROWS = 8
@@ -160,19 +167,21 @@ def run_screen_stage(
     chunk_bp: int = 1 << 20,
     staged=None,
     device="cuda",
+    mesh=None,
 ) -> List[str]:
     """Full stage over several sketch DBs (the reference screens sketch1,
     sketch2, sketch3 and unions the selections, ``run_hymet_cami.sh:83-98``).
 
     Writes per-DB screen/sorted/top_hits/selected files plus the unioned,
     de-duplicated ``selected_genomes.txt``; returns the selected ids.
+    With a ``mesh`` the merged DB is sharded over it (:func:`stream_screen`).
     """
     os.makedirs(outdir, exist_ok=True)
     labels = list(db_labels) if db_labels else [f"db{i+1}" for i in range(len(dbs))]
 
     def screen(db):
         return stream_screen(
-            db, query_files, chunk_bp=chunk_bp, staged=staged, device=device
+            db, query_files, chunk_bp=chunk_bp, staged=staged, device=device, mesh=mesh
         )
 
     # single pass: DBs sharing k are merged and the queries stream once;

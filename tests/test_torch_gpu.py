@@ -684,3 +684,87 @@ def test_contig_remap_on_card_matches_plain(tmp_path):
     assert all(n > 0 for n in launches.values()), launches
     assert got == plain == eval_cami._contig_remap(str(pred), asm2, device="cpu")
     assert len(got) >= 30 and all(t == new[names.index(q)] for q, t in got.items())
+
+
+def _gut_sample(tmp_path, n: int) -> str:
+    names, seqs = read_fasta(chip_smoke.CONTIGS)
+    sample = tmp_path / f"gut{n}.fna"
+    sample.write_text("".join(f">{a}\n{s.decode()}\n" for a, s in zip(names[:n], seqs[:n])))
+    return str(sample)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_sharded_screen_on_card_matches_cpu(tmp_path, shape):
+    """ShardedScreenEngine on one card named four times: 60 gut contigs
+    against merged sketch1-3, chunked, give the rows of the same engine on
+    the CPU and of the single-device engine on the card; screen_count is
+    launched once a batch and shard."""
+    _need_card()
+    from hymet_tpu_torch.io.sketchdb import SketchDB
+    from hymet_tpu_torch.parallel import make_mesh
+    from hymet_tpu_torch.pipeline.screen_stage import stream_screen
+
+    sample = _gut_sample(tmp_path, 60)
+    merged = SketchDB.concat([load_sketch_db(os.path.join(WORLD, f"{x}.npz")) for x in LABELS])
+    hash_kernels.screen_count.launches = 0
+    single = stream_screen(merged, [sample], chunk_bp=1 << 16, device="cuda")
+    batches = hash_kernels.screen_count.launches
+    card = stream_screen(merged, [sample], chunk_bp=1 << 16,
+                         mesh=make_mesh(*shape, devices=["cuda:0"] * 4))
+    torch.cuda.synchronize()
+    assert batches > 1 and hash_kernels.screen_count.launches == batches * (1 + shape[1])
+    cpu = stream_screen(merged, [sample], chunk_bp=1 << 16, mesh=make_mesh(*shape, devices=["cpu"] * 4))
+    for want in (cpu, single):
+        assert np.array_equal(card.identity, np.asarray(want.identity, dtype=np.float64))
+        assert np.array_equal(card.shared, want.shared) and np.array_equal(card.median, want.median)
+        assert card.total_query_kmers == want.total_query_kmers
+    assert card.shared.max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_sharded_aligner_on_card_matches_plain(tmp_path, shape):
+    """ShardedMinimizerAligner on one card named four times maps 70 gut
+    contigs (two groups of 64) onto their second assembly
+    (chip_smoke.second_assembly) to the records of the plain versions on
+    the card and on the CPU; every shard launches minimizers, anchors and
+    chains at least once a group."""
+    _need_card()
+    from hymet_tpu_torch.io.minimizer_index import MinimizerIndex
+    from hymet_tpu_torch.models.aligner import AlignerConfig, MinimizerAligner
+    from hymet_tpu_torch.ops import align_kernels as ak
+    from hymet_tpu_torch.parallel import make_mesh
+    from hymet_tpu_torch.parallel.align import ShardedMinimizerAligner
+
+    names, seqs = read_fasta(chip_smoke.CONTIGS)
+    names, seqs = names[:70], seqs[:70]
+    asm2 = str(tmp_path / "asm2.fna")
+    chip_smoke.second_assembly(names, seqs, dict.fromkeys(names, "1"), asm2, str(tmp_path / "t.tsv"))
+    index = MinimizerIndex.build_from_fasta(asm2, device="cuda")
+    cfg = AlignerConfig(batch_pad=1 << 14)
+    per_shard = {}
+    real = MinimizerAligner._dispatch_fused
+
+    def dispatch(self, *args):
+        before = chip_smoke.align_launches()
+        out = real(self, *args)
+        after = chip_smoke.align_launches()
+        counts = per_shard.setdefault(self.index.names[0], dict.fromkeys(after, 0))
+        for kn in after:
+            counts[kn] += after[kn] - before[kn]
+        return out
+
+    with mock.patch.object(MinimizerAligner, "_dispatch_fused", dispatch):
+        got = ShardedMinimizerAligner(make_mesh(*shape, devices=["cuda:0"] * 4), index,
+                                      cfg).map_batch(names, seqs)
+    torch.cuda.synchronize()
+    plain = ShardedMinimizerAligner(make_mesh(*shape, devices=["cuda:0"] * 4), index, cfg,
+                                    ops=ak.PLAIN).map_batch(names, seqs)
+    cpu = ShardedMinimizerAligner(make_mesh(*shape, devices=["cpu"] * 4), index,
+                                  cfg).map_batch(names, seqs)
+    lines = [r.to_line() for r in got]
+    assert len({r.qname for r in got}) >= 50
+    assert lines == [r.to_line() for r in plain] == [r.to_line() for r in cpu]
+    assert len(per_shard) == shape[1]
+    assert all(n >= 2 for counts in per_shard.values() for n in counts.values()), per_shard

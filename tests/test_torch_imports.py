@@ -97,6 +97,13 @@ HARNESS_MODULES = [
 ]
 
 
+PARALLEL_MODULES = [
+    "hymet_tpu_torch.parallel", "hymet_tpu_torch.parallel.mesh",
+    "hymet_tpu_torch.parallel.collectives", "hymet_tpu_torch.parallel.screen",
+    "hymet_tpu_torch.parallel.align",
+]
+
+
 _IMPORT_EACH_ALONE = r"""
 import importlib, json, os, sys, traceback
 
@@ -121,13 +128,15 @@ print(json.dumps(results))
 @pytest.fixture(scope="module")
 def alone():
     """Exit code of importing each module of ALIGN_MODULES, RUN_MODULES,
-    CLI_MODULES, EVAL_MODULES and HARNESS_MODULES alone, with jax and hymet_tpu blocked (0:
-    imported, pulling in neither), from one interpreter that forks a child a module."""
+    CLI_MODULES, EVAL_MODULES, HARNESS_MODULES and PARALLEL_MODULES alone, with jax and
+    hymet_tpu blocked (0: imported, pulling in neither), from one interpreter that forks a
+    child a module."""
     code = _BLOCKED_IMPORTS.split("import hymet_tpu_torch")[0] + _IMPORT_EACH_ALONE
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", code, *ALIGN_MODULES, *RUN_MODULES,
-                          *CLI_MODULES, *EVAL_MODULES, *HARNESS_MODULES], cwd=REPO,
+                          *CLI_MODULES, *EVAL_MODULES, *HARNESS_MODULES, *PARALLEL_MODULES],
+                         cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     return json.loads(out.stdout.strip().splitlines()[-1]), out.stderr
@@ -172,6 +181,15 @@ def test_harness_module_imports_without_jax_or_reference_package(alone, module):
     """Each module of the experiment harnesses (and the device rule they
     share with the command line), imported alone with jax and hymet_tpu
     blocked, pulls in neither (plots imports matplotlib only to draw)."""
+    codes, stderr = alone
+    assert codes[module] == 0, stderr
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_module_imports_without_jax_or_reference_package(alone, module):
+    """Each module of the reference-DB sharding (mesh, sharded_topk, the
+    sharded screen and aligner), imported alone with jax and hymet_tpu
+    blocked, pulls in neither."""
     codes, stderr = alone
     assert codes[module] == 0, stderr
 
@@ -247,6 +265,18 @@ def test_run_entry_points_default_to_the_card(tmp_path):
     n = weighted_lca(rows, torch.ones((1, 8), dtype=torch.float64),
                      torch.ones((1, 8), dtype=torch.int32))[1]
     assert n.tolist() == [8]
+
+
+def test_mesh_defaults_to_the_cards():
+    """make_mesh without devices= takes every visible card, and raises here,
+    where there is none; so do meshes naming the card."""
+    _no_card()
+    from hymet_tpu_torch.parallel import make_mesh
+
+    for call in (lambda: make_mesh(), lambda: make_mesh(1, 2), lambda: make_mesh(devices=["cuda"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert make_mesh(devices=["cpu"]).shape == {"data": 1, "db": 1}
 
 
 def test_eval_entry_points_default_to_the_card(tmp_path):

@@ -4,8 +4,9 @@ kbp, 7 contigs) with the same RunConfig: every stage file byte for byte,
 the cached reference too; the reference cache and the resident aligner on
 a second run; the first-hit fallback for a data error and not for a
 kernel or CUDA error; the max_secondary check; the legacy classifier's
-run; the length-weighted profile (HYMET_PROFILE_WEIGHT=length); what the
-port refuses."""
+run; the length-weighted profile (HYMET_PROFILE_WEIGHT=length); the
+sharded run at db_shards=4 over 8 devices, and db_shards=2 on one device;
+what the port refuses."""
 
 import dataclasses
 import filecmp
@@ -186,11 +187,63 @@ def test_max_secondary_above_the_lca_ceiling_is_refused(world, runs, tmp_path, m
         run._stage_align(os.path.join(_cache_dir(run.cfg), "combined_genomes.fasta"))
 
 
-@pytest.mark.parametrize("field,value", [("db_shards", 2), ("classifier_backend", "nope")])
+@pytest.mark.parametrize("field,value", [("classifier_backend", "nope")])
 def test_unported_options_raise(field, value):
     cfg = TConfig(**{field: value})
-    with pytest.raises(NotImplementedError if value != "nope" else ValueError):
+    with pytest.raises(ValueError):
         TRun(cfg, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def sharded_runs(world, tmp_path_factory):
+    """Both packages' execute at db_shards=4 over 8 devices (a 2x4 mesh):
+    JAX's 8 virtual CPU devices, the port's CPU named eight times."""
+    tmp = tmp_path_factory.mktemp("sharded")
+    jcfg = _config(world, tmp / "jax")
+    jcfg.cache_root, jcfg.db_shards = str(tmp / "jcache"), 4
+    jrun = JRun(jcfg)
+    jrun.execute()
+    tcfg = _tcfg(world, tmp / "torch", tmp / "tcache")
+    tcfg.db_shards = 4
+    trun = TRun(tcfg, device="cpu", mesh_devices=["cpu"] * 8)
+    trun.execute()
+    return jrun, trun
+
+
+@pytest.mark.parametrize("name", ["work/selected_genomes.txt", "work/resultados.paf",
+                                  "classified_sequences.tsv", "hymet.sample.cami.tsv"])
+def test_sharded_outputs_byte_identical(sharded_runs, name):
+    jrun, trun = sharded_runs
+    assert trun.mesh.shape == {"data": 2, "db": 4}
+    got, want = os.path.join(trun.cfg.outdir, name), os.path.join(jrun.cfg.outdir, name)
+    assert os.path.getsize(want) > 0
+    assert filecmp.cmp(got, want, shallow=False)
+
+
+def test_sharded_run_stages(sharded_runs):
+    """The sharded run stages no upload (as JAX's) and goes through the
+    sharded screen and aligner."""
+    jrun, trun = sharded_runs
+    assert set(trun.timings) == set(jrun.timings) == {"screen", "limit", "reference", "align",
+                                                      "classify", "export"}
+    assert trun._staged is None and not trun.fallback_ran
+
+
+def test_db_shards_without_enough_devices_runs_single_device(world, runs, tmp_path, caplog):
+    """db_shards=2 on one CPU device (the default mesh devices of a CPU
+    run): the JAX warning, no mesh, and the single-device run's files."""
+    _jrun, trun = runs
+    cfg = _tcfg(world, tmp_path / "torch", tmp_path / "tcache")
+    cfg.db_shards = 2
+    with caplog.at_level("WARNING", logger="hymet_tpu_torch.run"):
+        run = TRun(cfg, device="cpu")
+    assert run.mesh is None
+    assert "db_shards=2 but only 1 devices; running single-device" in caplog.text
+    run.execute()
+    for name in ("work/selected_genomes.txt", "work/resultados.paf", "classified_sequences.tsv",
+                 "hymet.sample.cami.tsv"):
+        assert filecmp.cmp(os.path.join(cfg.outdir, name), os.path.join(trun.cfg.outdir, name),
+                           shallow=False), name
 
 
 def test_legacy_run_matches_jax(world, runs, tmp_path):

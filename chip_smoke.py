@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of hymet_tpu_torch on one NVIDIA card (H100).
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only distributed]
 
 Phases, each printed as one JSON line with its seconds:
 
@@ -9,6 +9,10 @@ Phases, each printed as one JSON line with its seconds:
              largest SM clock.
 2. build   — nvcc builds the hand-written kernels from the checkout's
              sources; prints ptxas's registers, shared memory and spills.
+             The host compiler builds the CPU path's native helpers
+             (``io/native_io.py``), held against the numpy versions on the
+             gut contigs (encode, hashes at k = 21, minimizers at k = 19,
+             w = 19): equality and seconds, host code.
 3. kernel  — every kernel against its plain PyTorch version on the card:
              ``kmer_hashes`` bit for bit and ``screen_count`` count for
              count (counts and valid-window total), at the edge cases (k at
@@ -194,10 +198,32 @@ Phases, each printed as one JSON line with its seconds:
              each shard's index alone). Then the sharded ``map_batch`` of
              the 1000 contigs and the one-device one (unstaged, the same
              index): 3 timed runs each and one trace (device busy, idle).
+14. distributed — phase 13's run over processes: 2 ``torch.distributed``
+             gloo processes on the card, each naming it twice (a global
+             1 x 4 mesh; one process a card, 4 processes, where 4 cards are
+             visible), started with ``sys.executable`` after this process
+             built the kernels, each running ``execute`` on the gut sample
+             at ``db_shards = 4`` with a cold cache, its counts set to 0
+             just before and read just after. Process 0's selected genomes,
+             PAF, classification and CAMI profile must equal phase 13's
+             byte for byte, every other process's must equal them under
+             its ``.proc<i>`` paths, which are all it writes; each process
+             must launch ``screen_count`` once a chunked batch on each of
+             its own shards and on no other, ``minimizers``, ``anchors``
+             and ``chains`` at least once a group of 64 contigs on each of
+             its index shards, and ``lca``. Prints each process's seconds,
+             stage split and launches. A worker that fails or outlasts
+             ``DIST_TIMEOUT_S`` fails the phase; every worker is stopped.
+
+``--only distributed`` runs phases 1 and 2, phase 13's run at
+``db_shards = 4`` alone, and phase 14 (for a call on four cards); it
+ends with the seconds and the nvidia-smi line and prints neither the
+kernels line nor the ``{"ok": true, ...}`` line.
 
 Then the script's seconds (phase "total"), the card's name and power
 limit as nvidia-smi prints them, one JSON line with the kernels' numbers
-(``sharded_launches``: phase 13's run), and as the last line
+(``sharded_launches``: phase 13's run; ``distributed_launches``: phase
+14's, a process each), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
 Outputs go to a temporary directory outside the repository.
 """
@@ -212,6 +238,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -227,7 +254,7 @@ import torch
 from hymet_tpu_torch import cli
 from hymet_tpu_torch.evalx import eval_cami
 from hymet_tpu_torch.harness import zymo_truth
-from hymet_tpu_torch.io import sketchdb
+from hymet_tpu_torch.io import native_io, sketchdb
 from hymet_tpu_torch.io.fasta import encode_seq, iter_fasta, pack_code_batch, read_fasta
 from hymet_tpu_torch.io.minimizer_index import MinimizerIndex, _row_batches
 from hymet_tpu_torch.io.paf import parse_paf_for_classification, write_paf
@@ -242,11 +269,12 @@ from hymet_tpu_torch.models.weighted_lca import (
 )
 from hymet_tpu_torch.ops import align_kernels, hash_kernels, lca, sketch_kernels
 from hymet_tpu_torch.ops.hash_kernels import count_hashes, screen_count_torch
-from hymet_tpu_torch.ops.hashing import SIGN, kmer_hashes_torch, unpack_code_batch
+from hymet_tpu_torch.ops.hashing import SIGN, kmer_hashes_numpy, kmer_hashes_torch, unpack_code_batch
 from hymet_tpu_torch.ops.minimizer import extract_minimizers_numpy, extract_minimizers_torch
 from hymet_tpu_torch.ops.sketch import ScreenEngine, flat_index_device
 from hymet_tpu_torch.parallel import make_mesh, sharded_topk
 from hymet_tpu_torch.parallel.align import ShardedMinimizerAligner
+from hymet_tpu_torch.parallel.distributed import init_distributed, local_card, shutdown
 from hymet_tpu_torch.parallel.screen import ShardedScreenEngine
 from hymet_tpu_torch.pipeline.align_stage import run_align_stage
 from hymet_tpu_torch.pipeline.candidates import limit_candidates_files
@@ -389,30 +417,37 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-PROFILE_ATTEMPTS = 3
+# traces of one run at most; a lost trace is retaken after a pause, as the
+# H100's losses came in runs of consecutive traces
+PROFILE_ATTEMPTS = 6
+PROFILE_PAUSE_S = 2.0
+# `lost` for a trace whose checks hold with any loss of a counted kernel
+# that still shows once
+ANY_LOST = 2**31
 
 
-def profile_run(fn, counted=(), lossy: bool = False) -> dict:
+def profile_run(fn, counted=(), lost: int = 0) -> dict:
     """One run of fn() under torch.profiler: its wall time, the device's
     busy time (CUDA kernels and copies, all on one stream), the idle
     share, and every device activity (name, ms, count), longest first.
 
     `counted`: (wrapper, kernel name) pairs, each wrapper launching its
     kernel at least once where it adds one to its count. A trace that
-    shows fewer of a kernel than its wrapper counted in the run has lost
-    device activity (a trace of a staged screen once held none of its 16
-    launches), so fn() runs again under a new trace, at most
-    PROFILE_ATTEMPTS times in all; no whole trace raises. `lossy`: the
-    run is long enough that the profiler drops a few activities from every
-    trace (on the H100, 14 or 15 of a map_batch's 16 ``minimizers``
-    launches showed in each of three traces), and the caller's checks
-    allow for it: a trace is then kept when each counted kernel shows at
-    least once. `launches` gives each kernel's count in the kept run,
-    `traced` the launches its trace shows, and `lost_traces` the traces
-    thrown away, as [name, counted, traced] lists."""
+    shows more than `lost` fewer of a kernel than its wrapper counted in
+    the run, or none of it, has lost device activity beyond what the
+    caller's checks allow, so fn() runs again under a new trace, at most
+    PROFILE_ATTEMPTS times in all, PROFILE_PAUSE_S apart; no whole trace
+    raises. On the H100 the profiler drops a few activities from most
+    traces: 14 or 15 of a map_batch's 16 ``minimizers`` launches showed
+    in each of three traces (its callers pass ANY_LOST), one of 8 lone
+    calls in most traces of 8 (the per-call traces pass 1), and once none
+    of a staged screen's 16 ``screen_count`` launches or of 8 lone
+    ``minimizers`` calls. `launches` gives each kernel's count in the kept
+    run, `traced` the launches its trace shows, and `lost_traces` the
+    traces thrown away, as [name, counted, traced] lists."""
     from torch.profiler import ProfilerActivity, profile
 
-    lost = []
+    thrown = []
     for _attempt in range(PROFILE_ATTEMPTS):
         before = [wrapper.launches for wrapper, _name in counted]
         torch.cuda.synchronize()
@@ -425,20 +460,21 @@ def profile_run(fn, counted=(), lossy: bool = False) -> dict:
         launches = {name: wrapper.launches - b for (wrapper, name), b in zip(counted, before)}
         traced = {name: sum(e.count for e in rows if name in e.key) for name in launches}
         short = [[name, n, traced[name]] for name, n in launches.items()
-                 if traced[name] < (min(n, 1) if lossy else n)]
+                 if traced[name] < max(min(n, 1), n - lost)]
         if not short:
             break
-        lost.append(short)
+        thrown.append(short)
         print(f"chip_smoke: the trace lost device activity {short}, tracing again",
               file=sys.stderr)
+        time.sleep(PROFILE_PAUSE_S)
     else:
         raise AssertionError(f"torch.profiler lost device activity in {PROFILE_ATTEMPTS} traces: "
-                             f"{lost}")
+                             f"{thrown}")
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     rows = sorted(rows, key=lambda e: -e.self_device_time_total)
     return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
             "device_ms": [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in rows],
-            "launches": launches, "traced": traced, "lost_traces": lost}
+            "launches": launches, "traced": traced, "lost_traces": thrown}
 
 
 def codes_with_n_runs(rng: np.random.Generator, B: int, L: int) -> np.ndarray:
@@ -922,6 +958,14 @@ def write_combined(selected: str, out_path: str) -> int:
     return len(names)
 
 
+def numpy_index(genomes) -> MinimizerIndex:
+    """The index of `genomes` built on the CPU by the numpy twin
+    (extract_minimizers_numpy), not the native host helpers: the plain
+    version a card's index build is held to."""
+    with mock.patch.object(native_io, "available", lambda: False):
+        return MinimizerIndex.build(genomes, device="cpu")
+
+
 def same_index(a: MinimizerIndex, b: MinimizerIndex) -> bool:
     return all(
         getattr(a, f).dtype == getattr(b, f).dtype and np.array_equal(getattr(a, f), getattr(b, f))
@@ -981,7 +1025,7 @@ def phase_align(tmp: str, cfg: RunConfig) -> tuple:
         if bp >= 5_000_000:
             break
     t = time.perf_counter()
-    if not same_index(MinimizerIndex.build(part, device="cuda"), MinimizerIndex.build(part, device="cpu")):
+    if not same_index(MinimizerIndex.build(part, device="cuda"), numpy_index(part)):
         raise AssertionError("the card's index differs from the numpy twin's")
     check_s = time.perf_counter() - t
     # map_batch: median of 3, peak memory, one profiled run
@@ -1004,7 +1048,7 @@ def phase_align(tmp: str, cfg: RunConfig) -> tuple:
     peak = torch.cuda.max_memory_allocated()
     prof = profile_run(lambda: aligner.map_batch(names, seqs, staged=staged),
                        counted=((align_kernels.minimizers, "minimizer_tile_kernel"),
-                                (align_kernels.anchors, "anchor_search_kernel")), lossy=True)
+                                (align_kernels.anchors, "anchor_search_kernel")), lost=ANY_LOST)
     minimizer_split = minimizer_activities(prof, aligner, index, staged)
     anchor_split = anchor_activities(prof, aligner, staged)
     emit("align", t0, selected_genomes=n_selected, reference_genomes=n_genomes,
@@ -1029,17 +1073,18 @@ def minimizer_activities(prof: dict, aligner: MinimizerAligner, index: Minimizer
                          staged) -> dict:
     """The minimizers kernels in a profiled map_batch (name, ms, count), and
     the device activities (kernels and memsets) of PROFILED_CALLS calls
-    alone on the first staged batch, per call (the profiler may drop a
-    window's first activity, so each kind's count is rounded per call).
-    Raises unless the tile kernel shows and a call makes at most
-    MINIMIZER_ACTIVITIES, or if map_batch ran more than two minimizers
-    kernels a batch."""
+    alone on the first staged batch, per call, from a trace that lacks at
+    most one call's tile launch (the profiler drops one call's activities
+    from most such traces, so each kind's count is rounded per call).
+    Raises unless the tile kernel shows once a call and a call makes at
+    most MINIMIZER_ACTIVITIES, or if map_batch ran more than two
+    minimizers kernels a batch."""
     kernels = [row for row in prof["device_ms"] if "minimizer" in row[0]]
     packed, mask, B, L = staged.device[0]
     cap = aligner._minimizer_cap(B, L)[1]
     calls = profile_run(lambda: [align_kernels.minimizers(packed, mask, L, index.k, index.w, cap)
                                  for _ in range(PROFILED_CALLS)],
-                        counted=((align_kernels.minimizers, "minimizer_tile_kernel"),), lossy=True)
+                        counted=((align_kernels.minimizers, "minimizer_tile_kernel"),), lost=1)
     per_call = {name: round(count / PROFILED_CALLS) for name, _ms, count in calls["device_ms"]}
     activities = sum(per_call.values())
     tile = sum(n for name, n in per_call.items() if "minimizer_tile_kernel" in name)
@@ -1059,7 +1104,8 @@ LIBRARY_SORT_GATHER = ("sort", "gather", "index_elementwise", "indexselect", "in
 def anchor_activities(prof: dict, aligner: MinimizerAligner, staged) -> dict:
     """The anchors kernels in a profiled map_batch (name, ms, count), and
     the device activities of PROFILED_CALLS ``anchors`` calls alone on the
-    first staged batch, per call. Raises if map_batch ran a torch sort or
+    first staged batch, per call, from a trace that lacks at most one
+    call's search launch. Raises if map_batch ran a torch sort or
     gather kernel, or if a call makes more device activities than
     ``SortLayout.launches`` states or no scatter pass shows."""
     library = [row for row in prof["device_ms"]
@@ -1072,7 +1118,7 @@ def anchor_activities(prof: dict, aligner: MinimizerAligner, staged) -> dict:
     args = (*mz, tables, cfg.max_occ, cfg.band_bits, acap, B, L)
     stated = align_kernels.sort_layout(tables, B, L, cfg.band_bits).launches
     calls = profile_run(lambda: [align_kernels.anchors(*args) for _ in range(PROFILED_CALLS)],
-                        counted=((align_kernels.anchors, "anchor_search_kernel"),), lossy=True)
+                        counted=((align_kernels.anchors, "anchor_search_kernel"),), lost=1)
     per_call = {name: round(count / PROFILED_CALLS) for name, _ms, count in calls["device_ms"]}
     activities = sum(per_call.values())
     if library or activities > stated or \
@@ -1111,7 +1157,7 @@ def edge_world(rng: np.random.Generator):
     long_g = acgt[rng.integers(0, 4, 40000)].tobytes()
     genomes = [(f"u{i}", unit) for i in range(16)] + [(f"o{i}", other) for i in range(17)]
     genomes.append(("long", long_g))
-    index = MinimizerIndex.build(genomes, device="cpu")
+    index = numpy_index(genomes)
     rows = [unit, other, long_g, unit[:500] + other[:500], unit[:30]]
     return index, rows
 
@@ -1340,10 +1386,10 @@ def anchor_edge_sets(seed: int = 0) -> list:
 
 
 def anchor_inputs(genomes, codes: np.ndarray, device="cpu") -> tuple:
-    """An edge set's index (built on the CPU), its aligner's anchor tables
+    """An edge set's index (built on the CPU by numpy), its aligner's anchor tables
     and the minimizers of its rows (``minimizers_torch``, a cap of every
     window), on `device`: (index, tables, minimizer outputs, B, L)."""
-    index = MinimizerIndex.build(genomes, device="cpu")
+    index = numpy_index(genomes)
     tables = MinimizerAligner(index, device=device)._tables
     packed, mask, L = pack_code_batch(codes)
     B = codes.shape[0]
@@ -2708,7 +2754,7 @@ def phase_sharded(tmp: str, seed: int, cfg: RunConfig) -> dict:
             times.append(time.perf_counter() - t)
         prof = profile_run(lambda: aligner.map_batch(names, seqs),
                            counted=((align_kernels.minimizers, "minimizer_tile_kernel"),
-                                    (align_kernels.anchors, "anchor_search_kernel")), lossy=True)
+                                    (align_kernels.anchors, "anchor_search_kernel")), lost=ANY_LOST)
         maps[tag] = {"s": times, "profiled_wall_s": prof["wall_s"],
                      "device_busy_s": prof["device_busy_s"], "idle_share": prof["idle_share"],
                      "launches": prof["launches"], "top_device_ms": prof["device_ms"][:6]}
@@ -2731,13 +2777,259 @@ def phase_sharded(tmp: str, seed: int, cfg: RunConfig) -> dict:
     return launches
 
 
+def native_check() -> dict:
+    """The native host helpers (the CPU path's: io/native_io.py) built with
+    this machine's host compiler and held against the numpy versions on
+    the gut contigs: encode, hashes at k = 21, minimizers at k = 19, w = 19.
+    Host code: equality and seconds only."""
+    t = time.perf_counter()
+    if not native_io.build() or not native_io.available():
+        raise AssertionError(f"the native host helpers did not build into {native_io.library_path()}")
+    out = {"library": os.path.relpath(native_io.library_path(), REPO),
+           "build_s": time.perf_counter() - t}
+    names, seqs = read_fasta(CONTIGS)
+    codes = [encode_seq(s) for s in seqs]
+    checks = (
+        ("encode", native_io.encode_seq, encode_seq, seqs),
+        ("kmer_hashes_k21", lambda c: native_io.kmer_hashes(c, 21),
+         lambda c: kmer_hashes_numpy(c, 21), codes),
+        ("minimizers_k19_w19", lambda c: native_io.minimizers(c, 19, 19),
+         lambda c: extract_minimizers_numpy(c, 19, 19), codes),
+    )
+    for name, native, plain, inputs in checks:
+        t = time.perf_counter()
+        got = [native(x) for x in inputs]
+        native_s = time.perf_counter() - t
+        t = time.perf_counter()
+        want = [plain(x) for x in inputs]
+        plain_s = time.perf_counter() - t
+        for g, w in zip(got, want):
+            g, w = (g, w) if isinstance(g, tuple) else ((g,), (w,))
+            if not all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(g, w)):
+                raise AssertionError(f"native {name} differs from numpy's")
+        out[name] = {"native_s": native_s, "numpy_s": plain_s, "identical": True}
+    out["contigs"], out["bases"] = len(seqs), sum(map(len, seqs))
+    return out
+
+
+DIST_SHARDS = 4  # db_shards of phase 14: phase 13's run, over processes
+DIST_FILES = ("work/selected_genomes.txt", "work/resultados.paf", "classified_sequences.tsv",
+              "hymet.contigs.cami.tsv")
+DIST_TIMEOUT_S = 600
+
+
+def dist_world() -> int:
+    """Processes of phase 14: one a card where 4 are visible, else 2 on
+    the one card."""
+    return DIST_SHARDS if torch.cuda.device_count() >= DIST_SHARDS else 2
+
+
+def dist_config(root: str) -> RunConfig:
+    cfg = run_config(root)
+    cfg.db_shards = DIST_SHARDS
+    return cfg
+
+
+def dist_worker(rank: int, world: int, port: int, root: str) -> int:
+    """One process of phase 14: joins the group on 127.0.0.1:`port`, names
+    its card (``LOCAL_RANK``'s) DIST_SHARDS / world times for a global
+    1 x DIST_SHARDS mesh, runs ``execute`` on the gut sample with a cold
+    cache under `root`, every launch count set to 0 just before and read
+    just after, and prints one JSON line: its seconds, stage split,
+    launches (each shard's apart) and chunked screen batches."""
+    init_distributed(f"127.0.0.1:{port}", num_processes=world, process_id=rank)
+    card = local_card()
+    torch.cuda.set_device(card)
+    shard_log: dict = {}
+    batches = []
+    real_update = ShardedScreenEngine.update_codes_packed  # what stream_screen calls
+    torch.cuda.synchronize(card)
+    zero_launches()
+    t = time.perf_counter()
+    with per_shard_launches(shard_log), mock.patch.object(
+            ShardedScreenEngine, "update_codes_packed",
+            lambda self, codes: batches.append(1) or real_update(self, codes)):
+        run = ClassificationRun(dist_config(root), device=card,
+                                mesh_devices=[card] * (DIST_SHARDS // world))
+        run.execute()
+    torch.cuda.synchronize(card)
+    report = json.dumps({
+        "rank": rank, "device": str(card), "execute_s": time.perf_counter() - t,
+        "stage_s": run.timings, "launches": all_launches(),
+        "per_shard": {f"{stage}:{name}": dict(c) for (stage, name), c in shard_log.items()},
+        "screen_batches": len(batches), "mesh": run.mesh.shape, "owners": run.mesh.owners,
+        "local_shards": run.mesh.local_shards, "outdir": run.cfg.outdir,
+        "cache_root": run.cfg.cache_root, "fallback_ran": run.fallback_ran})
+    shutdown()
+    print(report, flush=True)
+    return 0
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_workers(world: int, root: str, logs: str) -> list:
+    """Start phase 14's processes, wait for all of them (killing every one
+    when one fails or DIST_TIMEOUT_S passes) and return each one's JSON
+    line. Their output goes to files under `logs`."""
+    port = free_port()
+    os.makedirs(logs)
+    procs, files = [], []
+    for rank in range(world):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+        # one card a process where there are enough, else all on card 0
+        env["LOCAL_RANK"] = str(rank if torch.cuda.device_count() >= world else 0)
+        out = open(os.path.join(logs, f"rank{rank}.out"), "w")
+        err = open(os.path.join(logs, f"rank{rank}.err"), "w")
+        files += [out, err]
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", str(rank), str(world),
+             str(port), root], cwd=REPO, env=env, stdout=out, stderr=err))
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in files:
+            f.close()
+    reports = []
+    for rank, p in enumerate(procs):
+        with open(os.path.join(logs, f"rank{rank}.err")) as f:
+            err = f.read()
+        if p.returncode != 0:
+            raise AssertionError(f"distributed worker {rank} exited {p.returncode}:\n{err[-4000:]}")
+        with open(os.path.join(logs, f"rank{rank}.out")) as f:
+            reports.append(json.loads(f.read().strip().splitlines()[-1]))
+    return reports
+
+
+def phase_distributed(tmp: str) -> list:
+    """Phase 14: phase 13's run at db_shards = 4 over processes (2 on the
+    one card, each naming it twice; one a card where 4 are visible), each
+    process a ``torch.distributed`` gloo rank running ``execute`` on the
+    gut sample with a cold cache. Process 0's files must equal phase 13's
+    byte for byte, every other process's must equal them under its
+    ``.proc<i>`` paths (and it writes nowhere else), each process must
+    launch ``screen_count`` once a chunked batch on each of its own shards
+    and on no other, ``minimizers``, ``anchors`` and ``chains`` at least
+    once a group of 64 contigs on each of its index shards, and ``lca``."""
+    t0 = time.perf_counter()
+    world = dist_world()
+    per_process = DIST_SHARDS // world
+    root, logs = os.path.join(tmp, "distributed"), os.path.join(tmp, "distributed_logs")
+    os.makedirs(root)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the workers share the card with this process
+    reports = run_workers(world, root, logs)
+    phase_s = time.perf_counter() - t0
+
+    cfg = dist_config(root)
+    suffixes = [""] + [f".proc{r}" for r in range(1, world)]
+    want_entries = sorted(os.path.basename(p) + s for s in suffixes
+                          for p in (cfg.outdir, cfg.cache_root))
+    if sorted(os.listdir(root)) != want_entries:
+        raise AssertionError(f"distributed run wrote {sorted(os.listdir(root))}, "
+                             f"not {want_entries}")
+    sharded = os.path.join(tmp, "sharded")  # phase 13's run at db_shards = 4
+    (key,) = os.listdir(cfg.cache_root)
+    index = MinimizerIndex.load(os.path.join(cfg.cache_root, key,
+                                             f"reference_minidx_k{cfg.align_k}w{cfg.align_w}.npz"))
+    screen_names = [s.names[0] if s.n_refs else None
+                    for s in SketchDB.concat(load_world_dbs()).shard(DIST_SHARDS)]
+    index_names = [s.names[0] if s.n_minimizers else None for s in index.shard(DIST_SHARDS)]
+    n_groups = -(-len(read_fasta(CONTIGS)[0]) // 64)
+    for rank, (rep, suffix) in enumerate(zip(reports, suffixes)):
+        mine = list(range(rank * per_process, (rank + 1) * per_process))
+        if (rep["rank"], rep["outdir"], rep["cache_root"], rep["mesh"], rep["local_shards"],
+                rep["fallback_ran"]) != (rank, cfg.outdir + suffix, cfg.cache_root + suffix,
+                                         {"data": 1, "db": DIST_SHARDS}, mine, False):
+            raise AssertionError(f"distributed worker {rank}: {rep}")
+        for name in DIST_FILES:
+            want = os.path.join(sharded if rank == 0 else cfg.outdir, name)
+            if not filecmp.cmp(os.path.join(rep["outdir"], name), want, shallow=False):
+                raise AssertionError(f"distributed worker {rank}: {name} differs from {want}")
+        screen = {n for n in (screen_names[i] for i in mine) if n}
+        index_shards = {n for n in (index_names[i] for i in mine) if n}
+        shards = rep["per_shard"]
+        screen_ok = ({k.split(":", 1)[1] for k in shards if k.startswith("screen:")} == screen
+                     and all(shards[f"screen:{n}"]["screen_count"] == rep["screen_batches"] > 0
+                             for n in screen)
+                     and rep["launches"]["screen_count"] == len(screen) * rep["screen_batches"])
+        align_ok = ({k.split(":", 1)[1] for k in shards if k.startswith("align:")} == index_shards
+                    and all(shards[f"align:{n}"].get(kn, 0) >= n_groups for n in index_shards
+                            for kn in ("minimizers", "anchors", "chains")))
+        if not (screen_ok and align_ok and rep["launches"]["lca"] > 0):
+            raise AssertionError(f"distributed worker {rank}'s launches: {rep['launches']}, "
+                                 f"{shards}, {rep['screen_batches']} batches")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    emit("distributed", t0, processes=world, cards=torch.cuda.device_count(),
+         mesh=[1, DIST_SHARDS], workers_s=phase_s, groups=n_groups,
+         files_identical_to_phase_13=True, per_process_outputs=want_entries,
+         processes_report=[{k: rep[k] for k in ("rank", "device", "execute_s", "stage_s",
+                                                 "launches", "per_shard", "screen_batches",
+                                                 "local_shards")} for rep in reports],
+         nvidia_smi=smi.strip().splitlines())
+    return reports
+
+
+def sharded_reference_run(tmp: str) -> None:
+    """Phase 13's run at db_shards = 4 alone (the card named eight times),
+    for ``--only distributed``: what phase 14 is compared with."""
+    t0 = time.perf_counter()
+    cfg = run_config(tmp)
+    cfg.outdir, cfg.cache_root = os.path.join(tmp, "sharded"), os.path.join(tmp, "sharded_cache")
+    cfg.db_shards = DIST_SHARDS
+    run = ClassificationRun(cfg, device="cuda", mesh_devices=[torch.device("cuda", 0)] * 8)
+    run.execute()
+    torch.cuda.synchronize()
+    emit("sharded_reference", t0, mesh=run.mesh.shape, stage_s=run.timings)
+
+
+def all_phases(tmp: str, seed: int, sms: int, clock_hz: float) -> tuple:
+    """Phases 3 to 14 in `tmp`: what the kernels line reads."""
+    cfg = RunConfig()
+    kernels = phase_kernel(seed, cfg, sms, clock_hz)
+    small_ref, launches = phase_slice(tmp, cfg)
+    phase_scale(tmp, cfg, seed, small_ref, kernels["screen_count"]["ms"])
+    index, staged, align_launched, combined = phase_align(tmp, cfg)
+    align_stats = phase_align_kernels(seed, cfg, index, staged, combined, sms, clock_hz)
+    gut = phase_run(tmp)
+    lca_stats = phase_lca(seed, gut, sms, clock_hz)
+    db = phase_db(tmp, sms, clock_hz)
+    phase_eval(tmp, seed)
+    phase_harness(tmp)
+    sharded = phase_sharded(tmp, seed, cfg)
+    dist = phase_distributed(tmp)
+    return kernels, launches, align_launched, align_stats, gut, lca_stats, db, sharded, dist
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=["distributed"],
+                    help="phases 1 and 2, phase 13's run at db_shards = 4 alone, and phase 14; "
+                         "prints no kernels line and no ok line")
+    ap.add_argument("--worker", nargs=4, metavar=("RANK", "WORLD", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)  # one process of phase 14
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
+    if args.worker:
+        rank, world, port, root = args.worker
+        return dist_worker(int(rank), int(world), int(port), root)
     t_start = t0 = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi("name,power.limit")
@@ -2749,34 +3041,30 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = hash_kernels.load_library()
     emit("build", t0, nvcc_s=lib.build_s, library=os.path.relpath(lib.path, REPO),
-         ptxas=[ln.strip() for ln in lib.log.splitlines() if "ptxas" in ln or "spill" in ln])
-
-    cfg = RunConfig()
-    kernels = phase_kernel(args.seed, cfg, sms, clock_mhz * 1e6)
+         ptxas=[ln.strip() for ln in lib.log.splitlines() if "ptxas" in ln or "spill" in ln],
+         native_host_helpers=native_check())
     tmp = tempfile.mkdtemp(prefix="hymet_chip_smoke_")
     try:
-        small_ref, launches = phase_slice(tmp, cfg)
-        phase_scale(tmp, cfg, args.seed, small_ref, kernels["screen_count"]["ms"])
-        index, staged, align_launched, combined = phase_align(tmp, cfg)
-        align_stats = phase_align_kernels(args.seed, cfg, index, staged, combined, sms,
-                                          clock_mhz * 1e6)
-        gut = phase_run(tmp)
-        lca_stats = phase_lca(args.seed, gut, sms, clock_mhz * 1e6)
-        db = phase_db(tmp, sms, clock_mhz * 1e6)
-        phase_eval(tmp, args.seed)
-        phase_harness(tmp)
-        sharded = phase_sharded(tmp, args.seed, cfg)
+        if args.only == "distributed":
+            sharded_reference_run(tmp)
+            phase_distributed(tmp)
+        else:
+            kernels, launches, align_launched, align_stats, gut, lca_stats, db, sharded, dist = \
+                all_phases(tmp, args.seed, sms, clock_mhz * 1e6)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("total", t_start)
-
     print(smi)
+    if args.only:
+        return 0  # a partial run: neither the kernels line nor the contract's last line
+
     print(json.dumps({"kernels": [
         # the DB build's path (phase 10): its launches and its batches' times
         {"name": "sketch_codes", "route": "cuda",
          "source": "hymet_tpu_torch/csrc/bottom_sketch.cu",
          "replaces": "hymet_tpu/ops/sketch.py:919 with hymet_tpu/ops/pallas_kernels.py:35 fused in",
          "launches": db["launches"]["sketch_codes"], "main_path": True,
+         "distributed_launches": [r["launches"]["sketch_codes"] for r in dist],
          "sharded_launches": sharded["sketch_codes"], **db["sketch_codes"],
          "max_abs_err": max(db["sketch_codes"]["max_abs_err"],
                             kernels["sketch_codes"]["max_abs_err"]),
@@ -2786,6 +3074,7 @@ def main() -> int:
         {"name": "kmer_hash", "route": "cuda", "source": "hymet_tpu_torch/csrc/kmer_hash.cu",
          "replaces": "hymet_tpu/ops/pallas_kernels.py:35",
          "launches": db["launches"]["kmer_hash"], "main_path": False,
+         "distributed_launches": [r["launches"]["kmer_hash"] for r in dist],
          "sharded_launches": sharded["kmer_hash"],
          **db["kmer_hash"], "max_abs_err": max(db["kmer_hash"]["max_abs_err"],
                                                kernels["kmer_hash"]["max_abs_err"]),
@@ -2793,11 +3082,13 @@ def main() -> int:
         {"name": "screen_count", "route": "cuda", "source": "hymet_tpu_torch/csrc/screen_count.cu",
          "replaces": "hymet_tpu/ops/pallas_kernels.py:35",
          "launches": launches["screen_count"], "main_path": True,
+         "distributed_launches": [r["launches"]["screen_count"] for r in dist],
          "sharded_launches": sharded["screen_count"],
          **kernels["screen_count"], "library_ms": None},
         *({"name": name, "route": "cuda", "source": f"hymet_tpu_torch/csrc/{name}.cu",
            "replaces": replaces, "launches": align_launched[name], "main_path": True,
            "sharded_launches": sharded[name],
+           "distributed_launches": [r["launches"][name] for r in dist],
            **align_stats[name]}
           for name, replaces in (
               ("minimizers", "hymet_tpu/ops/minimizer.py:241"),
@@ -2805,11 +3096,13 @@ def main() -> int:
               ("chains", "hymet_tpu/models/aligner.py:709"))),
         {"name": "lca", "route": "cuda", "source": "hymet_tpu_torch/csrc/lca.cu",
          "replaces": "hymet_tpu/ops/lca.py:40", "launches": gut["launches"], "main_path": True,
+         "distributed_launches": [r["launches"]["lca"] for r in dist],
          "sharded_launches": sharded["lca"],
          **lca_stats},
         {"name": "bottom_sketch", "route": "cuda", "source": "hymet_tpu_torch/csrc/bottom_sketch.cu",
          "replaces": "hymet_tpu/ops/sketch.py:919", "launches": db["launches"]["bottom_sketch"],
-         "main_path": True, "sharded_launches": sharded["bottom_sketch"], **db["bottom_sketch"],
+         "main_path": True, "distributed_launches": [r["launches"]["bottom_sketch"] for r in dist],
+         "sharded_launches": sharded["bottom_sketch"], **db["bottom_sketch"],
          "max_abs_err": max(db["bottom_sketch"]["max_abs_err"],
                             kernels["bottom_sketch"]["max_abs_err"])},
     ]}))

@@ -60,6 +60,17 @@ def encode_seq(seq: bytes) -> np.ndarray:
     return _CODE_LUT[np.frombuffer(seq, dtype=np.uint8)]
 
 
+def read_fasta_codes(path: str) -> Tuple[List[str], List[np.ndarray]]:
+    """Read FASTA directly into uint8 code arrays (the native helpers'
+    encoder when the library is there, :func:`encode_seq` else)."""
+    from hymet_tpu_torch.io import native_io
+
+    if native_io.available():
+        return native_io.read_fasta_codes(path)
+    names, seqs = read_fasta(path)
+    return names, [encode_seq(s) for s in seqs]
+
+
 def pack_code_batch(codes: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int]:
     """Pack a [B, L] uint8 code batch (0-3 bases, 4 = invalid) into 2-bit
     codes + a validity bitmask: 0.375 bytes/base on the host-to-device

@@ -10,7 +10,9 @@ index cached by one package loads into the other:
 - ``seq_id`` [M] int32, ``pos`` [M] int32, ``strand`` [M] int8 co-sorted,
 - per-sequence names and lengths (PAF tname/tlen come from here).
 
-On the CPU the index is built with the numpy twin
+On the CPU the index is built with the native helpers
+(:mod:`hymet_tpu_torch.io.native_io`, 1 <= k <= 31) or, where they did not
+build, the numpy twin
 (:func:`hymet_tpu_torch.ops.minimizer.extract_minimizers_numpy`); on the
 card with the minimizer kernel (:func:`hymet_tpu_torch.ops.align_kernels.minimizers`,
 rows cut at each sequence's own length) and a stable sort by hash. Both
@@ -26,6 +28,7 @@ from typing import Iterable, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from hymet_tpu_torch.io import native_io
 from hymet_tpu_torch.io.fasta import encode_seq, iter_fasta, pack_code_batch
 from hymet_tpu_torch.ops.align_kernels import minimizers
 from hymet_tpu_torch.ops.hashing import SIGN
@@ -156,10 +159,18 @@ def _empty():
             np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.int8))
 
 
+def _extract_minimizers_host(codes: np.ndarray, k: int, w: int):
+    """The native helpers' minimizers where they built (1 <= k <= 31, one
+    fewer than numpy's 32), the numpy twin's else: the same arrays."""
+    if 1 <= k <= 31 and native_io.available():
+        return native_io.minimizers(codes, k, w)
+    return extract_minimizers_numpy(codes, k, w)
+
+
 def _build_numpy(seqs: Sequence[bytes], k: int, w: int):
     h_parts, s_parts, p_parts, st_parts = [], [], [], []
     for sid, seq in enumerate(seqs):
-        h, p, st = extract_minimizers_numpy(encode_seq(seq), k, w)
+        h, p, st = _extract_minimizers_host(encode_seq(seq), k, w)
         if h.size:
             h_parts.append(h)
             p_parts.append(p)

@@ -17,7 +17,11 @@ window and keeps each row's s smallest distinct hashes
 (:func:`~hymet_tpu_torch.ops.sketch_kernels.sketch_codes`: codes in,
 sketches out, no hash written to device memory). A row longer than the
 budget goes up in pieces that overlap by k - 1 bases, their sketches
-folded by :func:`~hymet_tpu_torch.ops.sketch_kernels.bottom_sketch`.
+folded by :func:`~hymet_tpu_torch.ops.sketch_kernels.bottom_sketch`. On
+the CPU, where the native helpers of :mod:`hymet_tpu_torch.io.native_io`
+built (1 <= k <= 32), a batch's rows are hashed on the host instead, as
+the JAX host build hashes them; without them the CPU takes
+:func:`sketch_codes`'s plain version, which is faster than numpy's.
 """
 
 from __future__ import annotations
@@ -30,7 +34,9 @@ from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from hymet_tpu_torch.io import native_io
 from hymet_tpu_torch.io.fasta import encode_seq, iter_fasta
+from hymet_tpu_torch.ops.hashing import kmer_hashes_host
 from hymet_tpu_torch.ops.sketch_kernels import bottom_sketch, sketch_codes
 from hymet_tpu_torch.utils.device import resolve_device
 
@@ -170,8 +176,19 @@ def load_sketch_db(path: str) -> SketchDB:
 
 def bottom_sketch_from_hashes(hashes: np.ndarray, s: int) -> Tuple[np.ndarray, int]:
     """Bottom-s of the *distinct* hash set (Mash semantics), on the host.
-    Returns a length-s array (PAD_HASH padded) and the true count."""
-    uniq = np.unique(hashes)  # sorted
+    Returns a length-s array (PAD_HASH padded) and the true count.
+
+    Only the m smallest hashes are made distinct (m = s, doubled until
+    they hold s distinct values or are all of them): a partition is linear
+    where ``np.unique`` of the whole row sorts or hashes millions."""
+    m = s
+    while m < len(hashes):
+        uniq = np.unique(np.partition(hashes, m - 1)[:m])  # sorted
+        if len(uniq) >= s:
+            break
+        m *= 2
+    else:
+        uniq = np.unique(hashes)
     n = min(len(uniq), s)
     out = np.full(s, PAD_HASH, dtype=np.uint64)
     out[:n] = uniq[:n]
@@ -227,18 +244,32 @@ def pad_rows(rows: List[np.ndarray]) -> np.ndarray:
     return codes
 
 
+def _sketch_host(rows: List[np.ndarray], k: int, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sketch_codes` of the rows on the host, as the JAX host build
+    sketches: each row's hashes (:func:`kmer_hashes_host`), the s smallest
+    distinct ones."""
+    sketches = [bottom_sketch_from_hashes(kmer_hashes_host(r, k), s) for r in rows]
+    return (torch.from_numpy(np.stack([h for h, _ in sketches]).view(np.int64)),
+            torch.tensor([n for _, n in sketches], dtype=torch.int32))
+
+
 def _sketch_batch_rows(rows: List[np.ndarray], k: int, s: int, dev: torch.device,
                        timings: Optional[dict]) -> Tuple[torch.Tensor, torch.Tensor]:
     """One batch of code rows (the longest at least k) -> their sketches
-    [B, s] and counts [B] on `dev`."""
+    [B, s] and counts [B] on `dev`: :func:`sketch_codes` of the padded
+    batch, or on the CPU with the native helpers, :func:`_sketch_host` of
+    the rows as they are."""
     t = time.perf_counter()
-    codes = torch.from_numpy(pad_rows(rows)).to(dev)
-    t = _add_time(timings, "upload_s", t, dev)
-    out = sketch_codes(codes, k, s)
+    host = dev.type == "cpu" and 1 <= k <= 32 and native_io.available()
+    if not host:
+        codes = torch.from_numpy(pad_rows(rows)).to(dev)
+    t = _add_time(timings, "upload_s", t, dev)  # 0 on the host route: nothing goes up
+    out = _sketch_host(rows, k, s) if host else sketch_codes(codes, k, s)
     _add_time(timings, "sketch_codes_s", t, dev)
     if timings is not None:
         timings["batches"] = timings.get("batches", 0) + 1
-        timings["windows"] = timings.get("windows", 0) + codes.shape[0] * (codes.shape[1] - k + 1)
+        longest = max(len(r) for r in rows)
+        timings["windows"] = timings.get("windows", 0) + len(rows) * (longest - k + 1)
     return out
 
 

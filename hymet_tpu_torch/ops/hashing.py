@@ -6,7 +6,9 @@ Mash hashes each canonical k-mer's ASCII bytes with MurmurHash3_x64_128
 - :func:`murmur3_x64_128_py` — scalar pure Python, from the MurmurHash3
   specification; the ground truth for tests (copy of hymet_tpu's).
 - :func:`kmer_hashes_numpy` — vectorized numpy uint64 over one sequence
-  (copy of hymet_tpu's host oracle).
+  (copy of hymet_tpu's host oracle); :func:`kmer_hashes_host` takes the
+  native helpers (:mod:`hymet_tpu_torch.io.native_io`) instead where they
+  built, for the CPU DB build.
 - :func:`kmer_hashes_torch` — the plain PyTorch version of the screen's
   hash kernel over a [B, L] code batch: the CPU path, and the version the
   CUDA kernel (:mod:`hymet_tpu_torch.ops.hash_kernels`) is held against.
@@ -239,6 +241,17 @@ def kmer_hashes_numpy(codes: np.ndarray, k: int, seed: int = SEED) -> np.ndarray
     if rows.shape[0] == 0:
         return np.zeros(0, dtype=np.uint64)
     return murmur3_x64_128_numpy(rows[valid], seed)
+
+
+def kmer_hashes_host(codes: np.ndarray, k: int) -> np.ndarray:
+    """Host k-mer hashing: the native helpers where they built (1 <= k <=
+    32), :func:`kmer_hashes_numpy` else. Mash's default seed only (the
+    native code pins it)."""
+    from hymet_tpu_torch.io import native_io
+
+    if 1 <= k <= 32 and native_io.available():
+        return native_io.kmer_hashes(codes, k)
+    return kmer_hashes_numpy(codes, k)
 
 
 # ----------------------------------------------------------------------

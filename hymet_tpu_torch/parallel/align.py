@@ -1,5 +1,5 @@
 """Sharded minimizer alignment over the ("data", "db") mesh (counterpart of
-hymet_tpu.parallel.align, one process).
+hymet_tpu.parallel.align).
 
 The minimap2 ``-I2g`` batching (reference ``scripts/minimap2.sh:12``,
 ``run_hymet_cami.sh:76-80``) bounded index RAM by processing reference
@@ -19,6 +19,12 @@ double when any shard overflows. ``max_occ`` applies to each shard's
 index alone, so a minimizer frequent in the whole reference but not in
 its shard is kept: the sharded run may map otherwise than the
 single-device run (ROADMAP C14); it follows the JAX sharded program.
+
+Over a mesh that spans processes, each process builds aligners only for
+the shards it owns. Each group's counts are gathered from every process
+before the overflow decision, so that every process retries, or goes on,
+together; then the chain rows are gathered in shard order. Every process
+enters both gathers for every group, a process that owns no shard too.
 """
 
 from __future__ import annotations
@@ -37,10 +43,11 @@ from hymet_tpu_torch.models.aligner import (
     MinimizerAligner,
     _chains_from_rows,
     emit_paf,
+    expected_anchor_occ,
     pad_query_len,
 )
 from hymet_tpu_torch.ops.align_kernels import KERNELS, SEQ_BITS, AlignOps
-from hymet_tpu_torch.parallel.mesh import Mesh
+from hymet_tpu_torch.parallel.mesh import Mesh, fetch_global_tree
 
 logger = logging.getLogger("hymet_tpu_torch.aligner")
 
@@ -76,19 +83,24 @@ class ShardedMinimizerAligner:
         # global sequence id of each shard's first (shard() renumbers)
         bounds = np.linspace(0, len(index.names), n_db + 1).astype(int)
         self.seq_offsets = bounds[:-1]
-        # an empty shard has no tables and maps nothing
+        # an empty shard has no tables and maps nothing; another process's
+        # shard has no tables here
+        local = set(mesh.local_shards)
         self.aligners: List[Optional[MinimizerAligner]] = [
-            MinimizerAligner(sh, self.cfg, device=dev, ops=ops) if sh.n_minimizers else None
-            for sh, dev in zip(self.shards, mesh.db_devices)
+            MinimizerAligner(sh, self.cfg, device=dev, ops=ops)
+            if sh.n_minimizers and i in local else None
+            for i, (sh, dev) in enumerate(zip(self.shards, mesh.db_devices))
         ]
-        self._live = [(a, int(off)) for a, off in zip(self.aligners, self.seq_offsets)
-                      if a is not None]
+        # (shard, aligner) of this process's live shards
+        self._live = [(i, a) for i, a in enumerate(self.aligners) if a is not None]
         # sticky overflow-retry multipliers, shared by the shards
         self._cap_boost = 1
         self._acap_boost = 1
         self._ccap_boost = 1
-        # the worst shard's occurrence expectation sizes every shard's cap
-        self._exp_occ = max((a._exp_occ for a, _ in self._live), default=1.0)
+        # the worst shard's occurrence expectation sizes every shard's cap:
+        # from the host shards, which every process holds whole
+        self._exp_occ = max((expected_anchor_occ(sh.hashes, self.cfg.max_occ)
+                             for sh in self.shards if sh.n_minimizers), default=1.0)
 
     def map_batch(self, names: Sequence[str], seqs: Sequence[bytes]) -> List[PafRecord]:
         """Map queries; returns PAF records grouped per query in input
@@ -105,7 +117,7 @@ class ShardedMinimizerAligner:
             for base in range(0, len(seqs), GROUP_ROWS)
         ]
 
-        def _stage(group) -> dict:
+        def _stage(group) -> tuple:
             rows = GROUP_ROWS if len(seqs) >= GROUP_ROWS else len(group)
             batch = np.full((rows, pad), 4, dtype=np.uint8)
             for row, i in enumerate(group):
@@ -113,11 +125,11 @@ class ShardedMinimizerAligner:
                 batch[row, : codes.shape[0]] = codes
             packed, mask, L = pack_code_batch(batch)
             uploaded: dict = {}
-            for a, _ in self._live:
+            for _i, a in self._live:
                 if a.dev not in uploaded:
                     uploaded[a.dev] = (torch.from_numpy(packed).to(a.dev),
                                        torch.from_numpy(mask).to(a.dev), rows, L)
-            return uploaded
+            return uploaded, rows, L
 
         per_query: dict = {i: [] for i in range(len(seqs))}
         # dispatch-ahead, as MinimizerAligner.map_batch
@@ -145,24 +157,26 @@ class ShardedMinimizerAligner:
         return (cap, *MinimizerAligner._device_caps(self, B, NW, cap))
 
     def _dispatch_all(self, batches: dict, cap: int, acap: int, ccap: int) -> list:
-        return [a._dispatch_fused(batches[a.dev], cap, acap, ccap) for a, _ in self._live]
+        return [a._dispatch_fused(batches[a.dev], cap, acap, ccap) for _i, a in self._live]
 
-    def _dispatch_batch(self, batches: dict):
-        """Enqueue one group on every shard without waiting for it."""
-        _packed, _mask, B, L = next(iter(batches.values()))
+    def _dispatch_batch(self, staged: tuple):
+        """Enqueue one group on every local shard without waiting for it."""
+        batches, B, L = staged
         cap, acap, ccap = self._caps(B, L)
         return (batches, cap, acap, ccap, self._dispatch_all(batches, cap, acap, ccap))
 
     def _finish_batch(self, pending) -> list:
-        """Wait for a pending group (its shards' counts in one copy), retry
-        every shard with doubled caps when any overflowed (the boosts stay
-        for later groups), and return the shards' chains in shard order
-        with global sequence ids."""
+        """Wait for a pending group (its local shards' counts in one copy,
+        every process's in one gather), retry every shard with doubled caps
+        when any overflowed (the boosts stay for later groups), and return
+        the shards' chains in shard order with global sequence ids."""
         batches, cap, acap, ccap, outs = pending
-        first = self._live[0][0].dev
         while True:
-            counts = torch.stack([c.to(first) for _rows, c in outs]).tolist()
-            n_chains, n_kept, n_anchors = (max(col) for col in zip(*counts))
+            local = (torch.stack([c.to(self._live[0][1].dev) for _rows, c in outs]).cpu()
+                     if outs else ())
+            # {shard: (n_chains, n_kept, n_anchors)} of every process's live shards
+            counts = fetch_global_tree({i: row for (i, _a), row in zip(self._live, local)})
+            n_chains, n_kept, n_anchors = (int(max(col)) for col in zip(*counts.values()))
             if n_kept > cap:
                 logger.info("minimizer overflow (%d > %d): doubling cap", n_kept, cap)
                 cap *= 2
@@ -178,9 +192,11 @@ class ShardedMinimizerAligner:
             else:
                 break
             outs = self._dispatch_all(batches, cap, acap, ccap)
+        rows = fetch_global_tree({i: rows[: int(counts[i][0])] for (i, _a), (rows, _c) in
+                                  zip(self._live, outs)})
         chains = []
-        for (_a, off), (rows, _c), (n, _kept, _anchors) in zip(self._live, outs, counts):
-            if n:
-                chains.extend(_chains_from_rows(rows[:n].cpu().numpy(), self.index.k,
-                                                seq_offset=off))
+        for i in sorted(rows):
+            if rows[i].shape[0]:
+                chains.extend(_chains_from_rows(rows[i], self.index.k,
+                                                seq_offset=int(self.seq_offsets[i])))
         return chains

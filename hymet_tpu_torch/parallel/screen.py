@@ -1,5 +1,5 @@
 """Sharded sketch screen over a ("data", "db") mesh (counterpart of
-hymet_tpu.parallel.screen, one process).
+hymet_tpu.parallel.screen).
 
 The reference's three sequential sketch DBs and ``mash screen -p 8``
 (``run_hymet_cami.sh:83-99``, ``scripts/mash.sh:14``) become one screen
@@ -19,6 +19,12 @@ over row-sharded sketch matrices:
 - each shard scores its own rows; the rows concatenate in shard order (a
   pure reshard: references are disjoint across shards).
 
+Over a mesh that spans processes, each process builds engines only for
+the shards it owns and counts every batch on them; ``finalize`` gathers
+every shard's rows and the window total (the first counting shard's) in
+one collective round, which every process enters, a process that owns no
+shard too.
+
 Sharding by reference changes no count: the scores equal the
 single-device engine's.
 """
@@ -31,10 +37,10 @@ import numpy as np
 import torch
 
 from hymet_tpu_torch.io.fasta import pack_code_batch
-from hymet_tpu_torch.io.sketchdb import SketchDB
+from hymet_tpu_torch.io.sketchdb import PAD_HASH, SketchDB
 from hymet_tpu_torch.ops.hash_kernels import screen_count
 from hymet_tpu_torch.ops.sketch import CountFn, ScreenEngine, ScreenResult, count_valid_windows
-from hymet_tpu_torch.parallel.mesh import Mesh
+from hymet_tpu_torch.parallel.mesh import Mesh, fetch_global_tree
 
 
 class ShardedScreenEngine:
@@ -49,12 +55,17 @@ class ShardedScreenEngine:
         self.db = db
         self.shards = db.shard(mesh.shape["db"])
         # an empty shard (fewer references than shards) holds no engine; a
-        # shard whose sketches hold no hash scores 0 and counts nothing
+        # shard whose sketches hold no hash scores 0 and counts nothing;
+        # another process's shard holds no engine here
+        local = set(mesh.local_shards)
         self.engines: List[Optional[ScreenEngine]] = [
-            ScreenEngine(sh, device=dev, count_fn=count_fn) if sh.n_refs else None
-            for sh, dev in zip(self.shards, mesh.db_devices)
+            ScreenEngine(sh, device=dev, count_fn=count_fn) if sh.n_refs and i in local else None
+            for i, (sh, dev) in enumerate(zip(self.shards, mesh.db_devices))
         ]
-        self._counting = [e for e in self.engines if e is not None and e.flat.numel()]
+        # every process knows which shards count (each holds the whole DB)
+        counting = [i for i, sh in enumerate(self.shards) if (sh.hashes != PAD_HASH).any()]
+        self._first_counting = counting[0] if counting else None
+        self._counting = [self.engines[i] for i in counting if self.engines[i] is not None]
         self.total_query_kmers = 0
 
     def update_codes(self, codes: np.ndarray) -> None:
@@ -67,9 +78,11 @@ class ShardedScreenEngine:
         if B % n_data != 0:
             pad = n_data - (B % n_data)
             codes = np.concatenate([codes, np.full((pad, codes.shape[1]), 4, dtype=np.uint8)])
-        if not self._counting:
+        if self._first_counting is None:
             self.total_query_kmers += count_valid_windows(codes, self.db.k)
             return
+        if not self._counting:
+            return  # every counting shard lives in another process
         packed, mask, L = pack_code_batch(codes)
         uploaded: dict = {}
         for eng in self._counting:
@@ -83,21 +96,24 @@ class ShardedScreenEngine:
     update_codes_packed = update_codes
 
     def finalize(self) -> ScreenResult:
-        results = [e.finalize() if e is not None else None for e in self.engines]
-        if self._counting:
-            # every counting shard saw every valid window; read the first
-            self.total_query_kmers = self._counting[0].total_query_kmers
+        local = {i: e.finalize() for i, e in enumerate(self.engines) if e is not None}
+        rows, totals = fetch_global_tree((
+            {i: (r.identity, r.shared, r.median) for i, r in local.items()},
+            # every counting shard saw every valid window; the first's
+            # count is the total
+            {i: r.total_query_kmers for i, r in local.items() if i == self._first_counting},
+        ))
+        if self._first_counting is not None:
+            self.total_query_kmers = int(totals[self._first_counting])
         # reassemble per-shard rows into the global reference order
         identity = np.zeros(self.db.n_refs)
         g_shared = np.zeros(self.db.n_refs, dtype=np.int64)
         g_median = np.zeros(self.db.n_refs, dtype=np.int64)
         off = 0
-        for sh, res in zip(self.shards, results):
+        for i, sh in enumerate(self.shards):
             r = sh.n_refs
             if r:
-                identity[off : off + r] = res.identity
-                g_shared[off : off + r] = res.shared
-                g_median[off : off + r] = res.median
+                identity[off : off + r], g_shared[off : off + r], g_median[off : off + r] = rows[i]
             off += r
         return ScreenResult(
             db=self.db,

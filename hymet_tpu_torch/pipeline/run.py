@@ -1,5 +1,5 @@
 """End-to-end classification run: the ``run_hymet_cami.sh`` replacement
-(counterpart of hymet_tpu.pipeline.run, one process).
+(counterpart of hymet_tpu.pipeline.run).
 
     ClassificationRun(config, device="cuda").execute()
 
@@ -7,6 +7,14 @@ With ``config.db_shards > 1`` (``HYMET_DB_SHARDS``) and at least that many
 devices, the screen and the aligner shard the reference over a ("data",
 "db") mesh (:mod:`hymet_tpu_torch.parallel`); with fewer devices the run
 logs a warning and runs on one.
+
+Under a process group of more than one process
+(:func:`hymet_tpu_torch.parallel.distributed.init_distributed`), every
+process runs every stage: the mesh spans every process's devices, the
+sharded stages gather across processes, and the host stages compute the
+same result in each. Process 0's files are the canonical output; process
+``i > 0`` writes to ``outdir + ".proc<i>"`` and ``cache_root +
+".proc<i>"``. A barrier ends the run.
 
 Stage layout and intermediate files mirror the reference batch script:
 
@@ -31,12 +39,13 @@ reference's stage-skip semantics). Each stage's seconds (ending in a
 device synchronize) land in ``timings`` and ``metadata.json``.
 
 ``HYMET_PROFILE_WEIGHT=length`` weights the CAMI profile by contig
-length, as the JAX run does. Not here: the JAX package's multihost path
-and its ``jax.profiler`` hook.
+length, as the JAX run does. Not here: the JAX package's ``jax.profiler``
+hook.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import logging
@@ -59,7 +68,9 @@ from hymet_tpu_torch.models.legacy_lca import classify_paf_legacy
 from hymet_tpu_torch.models.weighted_lca import BACKENDS, classify_paf
 from hymet_tpu_torch.ops.hash_kernels import KernelError
 from hymet_tpu_torch.ops.lca import LCA_MAX_BUCKET
-from hymet_tpu_torch.parallel.mesh import make_mesh
+from hymet_tpu_torch.parallel.distributed import (
+    all_gather, barrier, local_card, process_count, process_index)
+from hymet_tpu_torch.parallel.mesh import global_devices, make_mesh
 from hymet_tpu_torch.pipeline.align_stage import (
     index_cache_path,
     load_or_build_index,
@@ -142,36 +153,68 @@ class ClassificationRun:
     ``mesh_devices`` (keyword-only; repeats allowed) are the devices a
     ``db_shards > 1`` mesh may use: by default every visible card for a
     CUDA `device`, and `device` alone for the CPU (so a CPU run falls back
-    to one device, as a one-device JAX host does)."""
+    to one device, as a one-device JAX host does). In a process group they
+    are this process's devices (by default `device`, where a bare "cuda"
+    is the process's own card, :func:`local_card`), and the mesh spans
+    every process's: every process must construct the run and execute it.
+    """
 
     def __init__(self, config: RunConfig, device="cuda", *, mesh_devices=None):
         if config.classifier_backend not in (*BACKENDS, "legacy"):
             raise ValueError(f"unknown classifier_backend {config.classifier_backend!r}")
         self.cfg = config
         self.dev = resolve_device(device)
+        self._setup_multihost()
+        if self._multihost and self.dev.type == "cuda" and self.dev.index is None:
+            self.dev = local_card()
         self.mesh = self._make_mesh(mesh_devices)
-        self.workdir = os.path.join(config.outdir, "work")
+        self.workdir = os.path.join(self.cfg.outdir, "work")
         self.timings = {}
         self.fallback_ran = False
         self._staged = None  # upload-once contig batches (_stage_contigs)
         self._contigs = None  # (names, seqs) read once for both stages
 
+    def _setup_multihost(self) -> None:
+        """In a group of more than one process, point a non-primary
+        process's writes at its own outdir and cache root."""
+        self._multihost = process_count() > 1
+        pid = process_index()
+        if not self._multihost or pid == 0:
+            return
+        cfg = self.cfg
+        self.cfg = dataclasses.replace(cfg, outdir=f"{cfg.outdir}.proc{pid}",
+                                       cache_root=f"{cfg.cache_root}.proc{pid}")
+        logger.info("multihost: process %d writes to %s", pid, self.cfg.outdir)
+
     def _make_mesh(self, mesh_devices):
         """("data", "db") mesh when db_shards > 1 and enough devices exist
-        (data = devices // db_shards); None = one device."""
+        (data = devices // db_shards, over every process's devices in a
+        group); None = one device."""
         shards = self.cfg.db_shards
         if shards <= 1:
             return None
-        if mesh_devices is None:
-            mesh_devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-                            if self.dev.type == "cuda" else [self.dev])
-        devs = list(mesh_devices)
+        if mesh_devices is not None:
+            local = list(mesh_devices)
+        elif self.dev.type == "cuda" and not self._multihost:
+            local = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            local = [self.dev]
+        devs, owners = global_devices(local)
         if len(devs) < shards:
             logger.warning("db_shards=%d but only %d devices; running single-device",
                            shards, len(devs))
             return None
-        data = max(1, len(devs) // shards)
-        return make_mesh(data=data, db=shards, devices=devs[: data * shards])
+        n = max(1, len(devs) // shards) * shards
+        return make_mesh(data=n // shards, db=shards, devices=devs[:n], owners=owners[:n])
+
+    def _have(self, path: str) -> bool:
+        """Whether a stage's output `path` is on disk and not empty: in
+        every process, when the stage gathers across processes (a process
+        that skipped it would leave the others waiting in its gathers)."""
+        have = os.path.exists(path) and os.path.getsize(path) > 0
+        if self._multihost and self.mesh is not None:
+            return all(all_gather(have))
+        return have
 
     # ------------------------------------------------------------------
 
@@ -195,6 +238,7 @@ class ClassificationRun:
         classified = self._stage_classify(paf_path, taxonomy_tsv)
         self._stage_export(classified)
         self._write_metadata()
+        barrier()
         return classified
 
     # ------------------------------------------------------------------
@@ -241,7 +285,7 @@ class ClassificationRun:
     def _stage_screen(self) -> str:
         cfg = self.cfg
         selected = os.path.join(self.workdir, "selected_genomes.txt")
-        if os.path.exists(selected) and os.path.getsize(selected) > 0:
+        if self._have(selected):
             logger.info("screen outputs exist; skipping")
             return selected
 
@@ -354,9 +398,11 @@ class ClassificationRun:
     def _stage_align(self, combined: str) -> str:
         cfg = self.cfg
         paf_path = os.path.join(self.workdir, "resultados.paf")
-        if os.path.exists(paf_path) and os.path.getsize(paf_path) > 0:
+        if self._have(paf_path):
             logger.info("PAF exists; skipping alignment")
             return paf_path
+        if os.path.exists(paf_path):  # another process lacks its PAF: map again, with it
+            os.remove(paf_path)
         aln_cfg = AlignerConfig(batch_pad=cfg.align_batch_pad)
         # the LCA bucketer drops nothing only while the aligner's per-query
         # record cap fits its largest bucket: fail here, not with wrong

@@ -237,12 +237,10 @@ def test_minimizers_kernel_gives_one_order_across_calls():
 def repeat_world():
     """A repetitive index (a unit in 16 copies, another in 17: hashes at
     max_occ and above it; a 40 kbp genome) and a batch of query rows."""
-    from hymet_tpu_torch.io.minimizer_index import MinimizerIndex
-
     rng = np.random.default_rng(11)
     unit, other, long_g = (_ACGT[rng.integers(0, 4, n)].tobytes() for n in (3000, 3000, 40000))
     genomes = [(f"u{i}", unit) for i in range(16)] + [(f"o{i}", other) for i in range(17)]
-    index = MinimizerIndex.build(genomes + [("long", long_g)], device="cpu")
+    index = chip_smoke.numpy_index(genomes + [("long", long_g)])
     rows = [unit, other, long_g, unit[:500] + other[:500], unit[:30]]
     codes = np.full((len(rows), 1 << 16), 4, np.uint8)
     for r, q in enumerate(rows):
@@ -375,7 +373,7 @@ def test_align_slice_kernel_matches_plain_on_card(tmp_path):
     fasta = tmp_path / "combined_genomes.fasta"
     fasta.write_text("".join(f">{n}\n{s.decode()}\n" for n, s in genomes))
     card = MinimizerIndex.build(genomes, device="cuda")
-    host = MinimizerIndex.build(genomes, device="cpu")
+    host = chip_smoke.numpy_index(genomes)
     for f in ("hashes", "seq_id", "pos", "strand", "lengths"):
         assert getattr(card, f).dtype == getattr(host, f).dtype
         np.testing.assert_array_equal(getattr(card, f), getattr(host, f))

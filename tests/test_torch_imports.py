@@ -100,8 +100,11 @@ HARNESS_MODULES = [
 PARALLEL_MODULES = [
     "hymet_tpu_torch.parallel", "hymet_tpu_torch.parallel.mesh",
     "hymet_tpu_torch.parallel.collectives", "hymet_tpu_torch.parallel.screen",
-    "hymet_tpu_torch.parallel.align",
+    "hymet_tpu_torch.parallel.align", "hymet_tpu_torch.parallel.distributed",
 ]
+
+
+HOST_MODULES = ["hymet_tpu_torch.io.native_io", "hymet_tpu_torch.io.fasta"]
 
 
 _IMPORT_EACH_ALONE = r"""
@@ -128,14 +131,15 @@ print(json.dumps(results))
 @pytest.fixture(scope="module")
 def alone():
     """Exit code of importing each module of ALIGN_MODULES, RUN_MODULES,
-    CLI_MODULES, EVAL_MODULES, HARNESS_MODULES and PARALLEL_MODULES alone, with jax and
-    hymet_tpu blocked (0: imported, pulling in neither), from one interpreter that forks a
+    CLI_MODULES, EVAL_MODULES, HARNESS_MODULES, PARALLEL_MODULES and HOST_MODULES alone,
+    with jax and hymet_tpu blocked (0: imported, pulling in neither), from one interpreter that forks a
     child a module."""
     code = _BLOCKED_IMPORTS.split("import hymet_tpu_torch")[0] + _IMPORT_EACH_ALONE
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", code, *ALIGN_MODULES, *RUN_MODULES,
-                          *CLI_MODULES, *EVAL_MODULES, *HARNESS_MODULES, *PARALLEL_MODULES],
+                          *CLI_MODULES, *EVAL_MODULES, *HARNESS_MODULES, *PARALLEL_MODULES,
+                          *HOST_MODULES],
                          cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -190,6 +194,15 @@ def test_parallel_module_imports_without_jax_or_reference_package(alone, module)
     """Each module of the reference-DB sharding (mesh, sharded_topk, the
     sharded screen and aligner), imported alone with jax and hymet_tpu
     blocked, pulls in neither."""
+    codes, stderr = alone
+    assert codes[module] == 0, stderr
+
+
+@pytest.mark.parametrize("module", HOST_MODULES)
+def test_host_module_imports_without_jax_or_reference_package(alone, module):
+    """The native host helpers' bindings and the FASTA reader that uses
+    them, imported alone with jax and hymet_tpu blocked, pull in neither
+    (the library builds at first use, not at import)."""
     codes, stderr = alone
     assert codes[module] == 0, stderr
 

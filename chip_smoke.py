@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of hymet_tpu_torch on one NVIDIA card (H100).
 
-    python3 chip_smoke.py [--seed N] [--only distributed]
+    python3 chip_smoke.py [--seed N] [--only distributed|bench]
 
 Phases, each printed as one JSON line with its seconds:
 
@@ -215,15 +215,44 @@ Phases, each printed as one JSON line with its seconds:
              stage split and launches. A worker that fails or outlasts
              ``DIST_TIMEOUT_S`` fails the phase; every worker is stopped.
 
+15. bench   — the port's bench (``python -m hymet_tpu_torch.bench``), on a
+             seeded synthetic stand-in for the Zymo panel it reads
+             (:func:`synthetic_panel`: 24 genomes of 1-3 Mbp, about 48 Mbp,
+             in a temporary directory; the panel is in neither the
+             repository nor the card's machine). ``sketch_batch_topk`` with
+             the ``kmer_hashes`` kernel against the same selection over the
+             plain hash, element for element, and the two
+             ``finish_bottom_sketch`` results and warnings equal, on
+             :func:`topk_edge_sets` and on the sketch mode's first [8, 2 Mbp]
+             chunk (with both functions' times there). Then every mode in
+             this process at the bench's sizes (sketch: 32 x 2 Mbp refs,
+             8 x 1 Mbp batches; sketch_large: 100,000 x 1000 hashes; align:
+             [64, 65,536] batches; pipeline: BENCH_CONTIGS = 1000), each
+             with a cold cache under the temporary directory and every
+             launch count set to 0 just before and read just after: the
+             sketch DB build's ``kmer_hashes`` once a ``sketch_batch_topk``
+             call (4), ``screen_count`` once an ``update_codes``, ``anchors``
+             and ``chains`` once an aligner dispatch, every kernel of the
+             run (``lca`` included) in each pipeline run, and no kernel
+             outside the mode's. The sketch mode's DB must equal
+             ``sketch_codes`` of the same 32 references, the pipeline's
+             last TSV a CPU re-classification of its PAF, with a species
+             accuracy of at least 0.9. Last, one child ``python -m
+             hymet_tpu_torch.bench`` in sketch mode must exit 0 with exactly
+             one JSON line (the watchdog silent).
+
 ``--only distributed`` runs phases 1 and 2, phase 13's run at
-``db_shards = 4`` alone, and phase 14 (for a call on four cards); it
-ends with the seconds and the nvidia-smi line and prints neither the
-kernels line nor the ``{"ok": true, ...}`` line.
+``db_shards = 4`` alone, and phase 14 (for a call on four cards);
+``--only bench`` runs phases 1, 2 and 15. Either ends with the seconds
+and the nvidia-smi line and prints neither the kernels line nor the
+``{"ok": true, ...}`` line.
 
 Then the script's seconds (phase "total"), the card's name and power
 limit as nvidia-smi prints them, one JSON line with the kernels' numbers
 (``sharded_launches``: phase 13's run; ``distributed_launches``: phase
-14's, a process each), and as the last line
+14's, a process each; ``bench_launches``: phase 15's, a mode each; for
+``kmer_hash``, ``launches`` is the bench's sketch DB build), and as the
+last line
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
 Outputs go to a temporary directory outside the repository.
 """
@@ -232,6 +261,7 @@ from __future__ import annotations
 
 import argparse
 import filecmp
+import glob
 import gzip
 import hashlib
 import json
@@ -244,6 +274,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from collections import Counter
 from contextlib import ExitStack
 from unittest import mock
@@ -251,7 +282,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from hymet_tpu_torch import cli
+from hymet_tpu_torch import bench, cli
 from hymet_tpu_torch.evalx import eval_cami
 from hymet_tpu_torch.harness import zymo_truth
 from hymet_tpu_torch.io import native_io, sketchdb
@@ -271,7 +302,12 @@ from hymet_tpu_torch.ops import align_kernels, hash_kernels, lca, sketch_kernels
 from hymet_tpu_torch.ops.hash_kernels import count_hashes, screen_count_torch
 from hymet_tpu_torch.ops.hashing import SIGN, kmer_hashes_numpy, kmer_hashes_torch, unpack_code_batch
 from hymet_tpu_torch.ops.minimizer import extract_minimizers_numpy, extract_minimizers_torch
-from hymet_tpu_torch.ops.sketch import ScreenEngine, flat_index_device
+from hymet_tpu_torch.ops.sketch import (
+    ScreenEngine,
+    finish_bottom_sketch,
+    flat_index_device,
+    sketch_batch_topk,
+)
 from hymet_tpu_torch.parallel import make_mesh, sharded_topk
 from hymet_tpu_torch.parallel.align import ShardedMinimizerAligner
 from hymet_tpu_torch.parallel.distributed import init_distributed, local_card, shutdown
@@ -293,7 +329,7 @@ DB_LABELS = ["sketch1", "sketch2", "sketch3"]
 # The DB build's kernels, not the run's: sketch_codes on every batch,
 # bottom_sketch on the pieces of a genome past the window budget. A run
 # launches neither, nor kmer_hash (the Pallas kernel's standalone
-# counterpart, which no path of the port calls).
+# counterpart, which only the bench's sketch DB build calls).
 DB_BUILD_KERNELS = ("sketch_codes", "bottom_sketch")
 RUN_IDLE = ("kmer_hash", *DB_BUILD_KERNELS)
 
@@ -2997,8 +3033,290 @@ def sharded_reference_run(tmp: str) -> None:
     emit("sharded_reference", t0, mesh=run.mesh.shape, stage_s=run.timings)
 
 
+PANEL_GENOMES = 24  # the Zymo panel's genome count (bench.py:49)
+PANEL_LEN = (1_000_000, 3_000_000)  # bp; about 48 Mbp in all, the panel's order
+
+
+def synthetic_panel(root: str, seed: int, n_genomes: int = PANEL_GENOMES,
+                    lengths: tuple = PANEL_LEN) -> tuple:
+    """A seeded stand-in for the Zymo panel the bench reads (its genomes
+    are in neither the repository nor the card's machine): `n_genomes`
+    random genomes of one sequence each, lengths drawn from `lengths`, as
+    ``root/genomes/<acc>/<acc>_x_genomic.fna.gz`` (gzip level 1), and
+    ``root/refs.tsv`` giving each accession a species of ``zymo_taxdb()``,
+    round-robin. Returns (genome glob, refs.tsv path) for
+    ``bench.GENOME_GLOB`` and ``bench.REFS_TSV``."""
+    from hymet_tpu_torch.data.zymo_taxonomy import zymo_taxdb
+
+    taxdb = zymo_taxdb()
+    species = [t for t, r in taxdb.rank.items() if r == "species"]
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rows = ["assembly_accession\ttaxid"]
+    for i in range(n_genomes):
+        acc = f"GCF_{900000 + i:09d}.1"
+        os.makedirs(os.path.join(root, "genomes", acc), exist_ok=True)
+        seq = acgt[rng.integers(0, 4, int(rng.integers(lengths[0], lengths[1] + 1)))]
+        with gzip.open(os.path.join(root, "genomes", acc, f"{acc}_x_genomic.fna.gz"), "wb",
+                       compresslevel=1) as f:
+            f.write(f">{acc}.seq1 synthetic genome {i}\n".encode() + seq.tobytes() + b"\n")
+        rows.append(f"{acc}\t{species[i % len(species)]}")
+    refs = os.path.join(root, "refs.tsv")
+    with open(refs, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return os.path.join(root, "genomes", "*", "*.fna.gz"), refs
+
+
+def topk_edge_sets(seed: int = 0) -> list:
+    """(name, codes [B, L] uint8, k, cand, s) for ``sketch_batch_topk`` and
+    ``finish_bottom_sketch``: at k = 15, 21, 31 a random row, one with N
+    runs, one mostly N (fewer valid windows than the pool), poly-A (a full
+    pool of one hash) and a tandem repeat (a full pool of few hashes), the
+    last two warning; rows with fewer windows than `cand`, at s = 50 and at
+    s = the first row's distinct k-mers (every window in the pool: its s-th
+    hash ties the pool's last high limb, a warning)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in (15, 21, 31):
+        rows = rng.integers(0, 4, size=(5, 3000)).astype(np.uint8)
+        for start in (100, 640, 1999):
+            rows[1, start : start + int(rng.integers(1, 60))] = 4
+        rows[2, 80:] = 4
+        rows[3] = 0
+        unit = rng.integers(0, 4, size=97).astype(np.uint8)
+        rows[4] = np.tile(unit, -(-3000 // unit.size))[:3000]
+        out.append((f"edge rows k={k}", rows, k, 250, 97))
+    short = rng.integers(0, 4, size=(3, 140)).astype(np.uint8)
+    short[1, 60:70] = 4
+    short[2] = 4
+    out.append(("short rows", short, 21, 300, 50))
+    distinct = int(np.unique(kmer_hashes_numpy(short[0], 21)).size)
+    out.append(("short rows, tie at the cutoff", short, 21, 300, distinct))
+    return out
+
+
+def finish_warned(cand_hi: torch.Tensor, cand_lo: torch.Tensor, s: int) -> tuple:
+    """finish_bottom_sketch of candidates on the card: (sketch, counts,
+    the warnings' messages)."""
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        out, n = finish_bottom_sketch(cand_hi.cpu().numpy(), cand_lo.cpu().numpy(), s)
+    return out, n, [str(w.message) for w in rec]
+
+
+def check_topk(name: str, codes: torch.Tensor, k: int, cand: int, s: int) -> list:
+    """sketch_batch_topk with the kmer_hashes kernel against the same
+    selection over the plain hash (both on the card), element for element,
+    and the two finished sketches, counts and warnings equal. Returns the
+    warnings."""
+    got = sketch_batch_topk(codes, k, cand)
+    want = sketch_batch_topk(codes, k, cand, hash_fn=kmer_hashes_torch)
+    check_equal(f"sketch_batch_topk, {name}", got, want)
+    a, b = finish_warned(*got, s), finish_warned(*want, s)
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) and a[2] == b[2]):
+        raise AssertionError(f"finish_bottom_sketch, {name}: differs from the plain version's")
+    return a[2]
+
+
+# the kernels each bench mode may launch (any other must stay at 0)
+BENCH_KERNELS = {
+    "sketch": ("kmer_hash", "screen_count"),  # the DB build, the screen
+    "sketch_stages": ("kmer_hash", "screen_count"),
+    "sketch_large": ("screen_count",),
+    "align": ("minimizers", "anchors", "chains"),  # and the index build's minimizers
+    "align_stages": ("minimizers", "anchors", "chains"),
+    # the world's three DB builds (sketch_codes), then the runs
+    "warm_pipeline": ("screen_count", "minimizers", "anchors", "chains", "lca", "sketch_codes"),
+    "pipeline": ("screen_count", "minimizers", "anchors", "chains", "lca", "sketch_codes"),
+}
+BENCH_RUN_KERNELS = ("screen_count", "minimizers", "anchors", "chains", "lca")
+BENCH_LOG_KEYS = ("groups", "stage", "marginal", "best", "runs:", "timed run",
+                  "warmup", "warm run", "species", "device-sketched", "flat DB", "index",
+                  "sample", "built", "simulated", "link-excluded", "finalize")
+
+
+def launches_of_runs(runs: list, execute):
+    """`execute` appending each run's outdir, seconds, launches (the counts'
+    growth over the run, none set to 0) and fallback to `runs`."""
+    def run(self):
+        torch.cuda.synchronize()
+        before, t = all_launches(), time.perf_counter()
+        out = execute(self)
+        torch.cuda.synchronize()
+        after = all_launches()
+        runs.append({"outdir": self.cfg.outdir, "s": time.perf_counter() - t,
+                     "launches": {k: after[k] - before[k] for k in after},
+                     "fallback_ran": self.fallback_ran})
+        return out
+    return run
+
+
+def bench_mode(mode: str, logs: list) -> dict:
+    """One mode of the port bench in this process, every launch count set
+    to 0 just before and read just after; its result, seconds, launches,
+    the calls that launch the kernels (update_codes, sketch_batch_topk,
+    the aligner's dispatches, each run's launches) and its log lines."""
+    calls = Counter()
+
+    def counted(key, fn):
+        def call(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    runs: list = []
+    lines: list = []
+
+    def log(msg):
+        lines.append(msg)
+        print(f"[bench] {msg}", file=sys.stderr, flush=True)
+
+    with ExitStack() as stack:
+        stack.enter_context(mock.patch.object(
+            ScreenEngine, "update_codes", counted("update_codes", ScreenEngine.update_codes)))
+        stack.enter_context(mock.patch("hymet_tpu_torch.ops.sketch.sketch_batch_topk",
+                                       counted("sketch_batch_topk", sketch_batch_topk)))
+        stack.enter_context(mock.patch.object(
+            MinimizerAligner, "_dispatch_fused",
+            counted("dispatch_fused", MinimizerAligner._dispatch_fused)))
+        stack.enter_context(mock.patch.object(bench, "log", log))
+        stack.enter_context(mock.patch.object(ClassificationRun, "execute",
+                                              launches_of_runs(runs, ClassificationRun.execute)))
+        torch.cuda.synchronize()
+        zero_launches()
+        t = time.perf_counter()
+        result = bench.MODES[mode](torch.device("cuda"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = all_launches()
+    rec = {"mode": mode, "result": result, "s": seconds, "launches": launches, "calls": dict(calls),
+           "log": [ln for ln in lines if ln.startswith(BENCH_LOG_KEYS)]}
+    if runs:
+        # each run counted from 0: every kernel of the run, no kmer_hashes
+        checked_runs(runs, len(runs), BENCH_RUN_KERNELS, idle=("kmer_hash",))
+        rec["runs"] = [{"s": r["s"], "launches": {k: r["launches"][k] for k in BENCH_RUN_KERNELS}}
+                       for r in runs]
+    logs.append(rec)
+    return rec
+
+
+def check_bench_launches(rec: dict) -> None:
+    """A mode's launches against the calls that make them: the sketch DB
+    build's kmer_hashes one a sketch_batch_topk call (ceil(refs / 8)),
+    screen_count one an update_codes, anchors and chains one an aligner
+    dispatch and minimizers at least that (the card's index build adds
+    its own), every kernel of the run in the pipeline modes; any kernel
+    outside the mode's set 0."""
+    mode, n, c = rec["mode"], rec["launches"], rec["calls"]
+    d = c.get("dispatch_fused", 0)
+    ok = {
+        "sketch": n["kmer_hash"] == c.get("sketch_batch_topk", 0) == -(-bench.N_REFS // 8)
+        and n["screen_count"] == c.get("update_codes", 0) > 0,
+        "sketch_stages": n["kmer_hash"] >= 7 and n["screen_count"] >= 7,
+        "sketch_large": n["screen_count"] == c.get("update_codes", 0) > 0,
+        "align": n["anchors"] == n["chains"] == d > 0 and n["minimizers"] >= d,
+        "align_stages": n["chains"] >= d > 0 and n["anchors"] > d and n["minimizers"] > d,
+    }.get(mode, all(n[k] > 0 for k in BENCH_RUN_KERNELS))
+    if not ok or any(v for k, v in n.items() if k not in BENCH_KERNELS[mode]):
+        raise AssertionError(f"bench {mode}: launches {n} against calls {c}")
+
+
+def bench_world_classification(w: dict, outdir: str, scratch: str) -> float:
+    """A pipeline run's TSV against classify_paf of its own PAF on the
+    CPU (with its reference's detailed_taxonomy.tsv and the world's
+    taxonomy); its species accuracy on the simulated truth."""
+    cpu = os.path.join(scratch, "bench_classified_cpu.tsv")
+    detailed = sorted(glob.glob(os.path.join(w["world"], "cache", "*", "detailed_taxonomy.tsv")))
+    if len(detailed) != 1:
+        raise AssertionError(f"bench world: {len(detailed)} cached references")
+    classify_paf(os.path.join(outdir, "work", "resultados.paf"), detailed[0],
+                 os.path.join(w["tax_dir"], "taxonomy_hierarchy.tsv"), cpu, device="cpu")
+    tsv = os.path.join(outdir, "classified_sequences.tsv")
+    if not filecmp.cmp(tsv, cpu, shallow=False):
+        raise AssertionError(f"{outdir}: the TSV differs from the CPU re-classification")
+    return bench._species_accuracy(w, tsv)
+
+
+def phase_bench(tmp: str, seed: int, sms: int, clock_hz: float) -> dict:
+    """Phase 15: the port's bench (``python -m hymet_tpu_torch.bench``)."""
+    t0 = time.perf_counter()
+    cuda = torch.device("cuda")
+    root = os.path.join(tmp, "bench")
+    os.makedirs(root)
+    t = time.perf_counter()
+    panel_glob, refs_tsv = synthetic_panel(os.path.join(root, "panel"), seed)
+    panel_s = time.perf_counter() - t
+    # sketch_batch_topk with the kmer_hashes kernel against its plain
+    # version: the edge rows, then the sketch mode's first DB chunk
+    topk_cases = []
+    for name, codes, k, cand, s in topk_edge_sets(seed):
+        warned = check_topk(name, torch.from_numpy(codes).cuda(), k, cand, s)
+        topk_cases.append([name, *codes.shape, k, cand, s, warned])
+    expect = [1, 1, 1, 0, 1]  # the edge sets at k = 15, 21, 31 warn; short rows only at the tie
+    if [len(c[-1]) for c in topk_cases] != expect:
+        raise AssertionError(f"sketch_batch_topk warnings {topk_cases}")
+    refs = bench.sketch_refs()
+    chunk = torch.from_numpy(refs[:8]).cuda()
+    if check_topk("the sketch mode's first chunk", chunk, 21, 2 * bench.SKETCH_S + 256,
+                  bench.SKETCH_S):
+        raise AssertionError("the sketch mode's first chunk warned")
+    topk = {"ms": cuda_ms(lambda: sketch_batch_topk(chunk, 21, 2 * bench.SKETCH_S + 256), iters=5),
+            "plain_ms": cuda_ms(lambda: sketch_batch_topk(chunk, 21, 2 * bench.SKETCH_S + 256,
+                                                          hash_fn=kmer_hashes_torch), iters=3)}
+    hash_ = {"shape": list(chunk.shape), "k": 21,
+             "ms": cuda_ms(lambda: hash_kernels.kmer_hashes(chunk, 21), iters=10),
+             "plain_ms": cuda_ms(lambda: kmer_hashes_torch(chunk, 21), iters=3, warmup=1)}
+    hash_["bound_ms"], hash_["bound_by"] = hash_bound_ms([tuple(chunk.shape)], 21, sms, clock_hz)
+    del chunk
+
+    # every mode in this process, with a cold cache of its own and the
+    # synthetic panel in place of the Zymo genomes
+    logs: list = []
+    with mock.patch.multiple(bench, CACHE=os.path.join(root, "cache"), GENOME_GLOB=panel_glob,
+                             REFS_TSV=refs_tsv):
+        os.makedirs(bench.CACHE)
+        for mode in ("sketch", "sketch_stages", "sketch_large", "align", "align_stages",
+                     "warm_pipeline", "pipeline"):
+            check_bench_launches(bench_mode(mode, logs))
+            torch.cuda.empty_cache()
+        # the sketch mode's DB, built through sketch_batch_topk and
+        # finish_bottom_sketch, against sketch_codes of the same references
+        db = SketchDB.load(bench.sketch_db_path())
+        for base in range(0, bench.N_REFS, 8):
+            h, n = sketch_kernels.sketch_codes(torch.from_numpy(refs[base : base + 8]).cuda(), 21,
+                                               bench.SKETCH_S)
+            if not (np.array_equal(db.hashes[base : base + 8].view(np.int64), h.cpu().numpy())
+                    and np.array_equal(db.n_hashes[base : base + 8], n.cpu().numpy())):
+                raise AssertionError(f"bench sketch DB rows {base}..: differ from sketch_codes")
+        w = bench._build_world(cuda)
+        accuracy = bench_world_classification(w, os.path.join(w["world"], "out_timed"), root)
+        if accuracy < 0.9:
+            raise AssertionError(f"bench pipeline: species accuracy {accuracy}")
+    del refs
+
+    # one child as a user runs it: the sketch mode at its defaults, its
+    # cache the checkout's build/bench_cache_torch
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("_BENCH_", "BENCH_"))}
+    t = time.perf_counter()
+    child = subprocess.run([sys.executable, "-m", "hymet_tpu_torch.bench"], cwd=REPO,
+                           env={**env, "BENCH_MODE": "sketch", "PYTHONPATH": REPO},
+                           capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t
+    lines = [ln for ln in child.stdout.splitlines() if ln.strip()]
+    if child.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench child: exit {child.returncode}, stdout {child.stdout!r}, "
+                             f"stderr tail {child.stderr[-3000:]!r}")
+    line = json.loads(lines[0])
+    if line.get("metric") != "sketch_query_Gbp_per_s" or "degraded" in line or line["value"] <= 0:
+        raise AssertionError(f"bench child: {line}")
+    emit("bench", t0, panel_s=panel_s, topk_cases=topk_cases, sketch_batch_topk=topk,
+         kmer_hash_bench_chunk=hash_, modes=logs, accuracy=accuracy,
+         child={"s": child_s, "line": line})
+    return {"modes": {r["mode"]: r for r in logs}, "kmer_hash": hash_}
+
+
 def all_phases(tmp: str, seed: int, sms: int, clock_hz: float) -> tuple:
-    """Phases 3 to 14 in `tmp`: what the kernels line reads."""
+    """Phases 3 to 15 in `tmp`: what the kernels line reads."""
     cfg = RunConfig()
     kernels = phase_kernel(seed, cfg, sms, clock_hz)
     small_ref, launches = phase_slice(tmp, cfg)
@@ -3012,15 +3330,17 @@ def all_phases(tmp: str, seed: int, sms: int, clock_hz: float) -> tuple:
     phase_harness(tmp)
     sharded = phase_sharded(tmp, seed, cfg)
     dist = phase_distributed(tmp)
-    return kernels, launches, align_launched, align_stats, gut, lca_stats, db, sharded, dist
+    bench_ = phase_bench(tmp, seed, sms, clock_hz)
+    return kernels, launches, align_launched, align_stats, gut, lca_stats, db, sharded, dist, bench_
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["distributed"],
-                    help="phases 1 and 2, phase 13's run at db_shards = 4 alone, and phase 14; "
-                         "prints no kernels line and no ok line")
+    ap.add_argument("--only", choices=["distributed", "bench"],
+                    help="distributed: phases 1 and 2, phase 13's run at db_shards = 4 alone, "
+                         "and phase 14; bench: phases 1, 2 and 15; either prints no kernels "
+                         "line and no ok line")
     ap.add_argument("--worker", nargs=4, metavar=("RANK", "WORLD", "PORT", "DIR"),
                     help=argparse.SUPPRESS)  # one process of phase 14
     args = ap.parse_args()
@@ -3048,15 +3368,20 @@ def main() -> int:
         if args.only == "distributed":
             sharded_reference_run(tmp)
             phase_distributed(tmp)
+        elif args.only == "bench":
+            phase_bench(tmp, args.seed, sms, clock_mhz * 1e6)
         else:
-            kernels, launches, align_launched, align_stats, gut, lca_stats, db, sharded, dist = \
-                all_phases(tmp, args.seed, sms, clock_mhz * 1e6)
+            (kernels, launches, align_launched, align_stats, gut, lca_stats, db, sharded, dist,
+             bench_) = all_phases(tmp, args.seed, sms, clock_mhz * 1e6)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("total", t_start)
     print(smi)
     if args.only:
         return 0  # a partial run: neither the kernels line nor the contract's last line
+
+    def bench_launches(name: str) -> dict:
+        return {mode: r["launches"][name] for mode, r in bench_["modes"].items()}
 
     print(json.dumps({"kernels": [
         # the DB build's path (phase 10): its launches and its batches' times
@@ -3065,16 +3390,20 @@ def main() -> int:
          "replaces": "hymet_tpu/ops/sketch.py:919 with hymet_tpu/ops/pallas_kernels.py:35 fused in",
          "launches": db["launches"]["sketch_codes"], "main_path": True,
          "distributed_launches": [r["launches"]["sketch_codes"] for r in dist],
+         "bench_launches": bench_launches("sketch_codes"),
          "sharded_launches": sharded["sketch_codes"], **db["sketch_codes"],
          "max_abs_err": max(db["sketch_codes"]["max_abs_err"],
                             kernels["sketch_codes"]["max_abs_err"]),
          "library_ms": None},
-        # the Pallas kernel's standalone counterpart: on no path (its times on
-        # the DB build's batches, the earlier route's first half)
+        # the Pallas kernel's standalone counterpart: on the bench's sketch
+        # DB build (phase 15; its launches there), its times on the run's
+        # DB build batches (phase 10) and the bench's chunk
         {"name": "kmer_hash", "route": "cuda", "source": "hymet_tpu_torch/csrc/kmer_hash.cu",
          "replaces": "hymet_tpu/ops/pallas_kernels.py:35",
-         "launches": db["launches"]["kmer_hash"], "main_path": False,
+         "launches": bench_["modes"]["sketch"]["launches"]["kmer_hash"], "main_path": True,
+         "db_build_launches": db["launches"]["kmer_hash"], "bench_chunk": bench_["kmer_hash"],
          "distributed_launches": [r["launches"]["kmer_hash"] for r in dist],
+         "bench_launches": bench_launches("kmer_hash"),
          "sharded_launches": sharded["kmer_hash"],
          **db["kmer_hash"], "max_abs_err": max(db["kmer_hash"]["max_abs_err"],
                                                kernels["kmer_hash"]["max_abs_err"]),
@@ -3083,12 +3412,14 @@ def main() -> int:
          "replaces": "hymet_tpu/ops/pallas_kernels.py:35",
          "launches": launches["screen_count"], "main_path": True,
          "distributed_launches": [r["launches"]["screen_count"] for r in dist],
+         "bench_launches": bench_launches("screen_count"),
          "sharded_launches": sharded["screen_count"],
          **kernels["screen_count"], "library_ms": None},
         *({"name": name, "route": "cuda", "source": f"hymet_tpu_torch/csrc/{name}.cu",
            "replaces": replaces, "launches": align_launched[name], "main_path": True,
            "sharded_launches": sharded[name],
            "distributed_launches": [r["launches"][name] for r in dist],
+           "bench_launches": bench_launches(name),
            **align_stats[name]}
           for name, replaces in (
               ("minimizers", "hymet_tpu/ops/minimizer.py:241"),
@@ -3097,11 +3428,13 @@ def main() -> int:
         {"name": "lca", "route": "cuda", "source": "hymet_tpu_torch/csrc/lca.cu",
          "replaces": "hymet_tpu/ops/lca.py:40", "launches": gut["launches"], "main_path": True,
          "distributed_launches": [r["launches"]["lca"] for r in dist],
+         "bench_launches": bench_launches("lca"),
          "sharded_launches": sharded["lca"],
          **lca_stats},
         {"name": "bottom_sketch", "route": "cuda", "source": "hymet_tpu_torch/csrc/bottom_sketch.cu",
          "replaces": "hymet_tpu/ops/sketch.py:919", "launches": db["launches"]["bottom_sketch"],
          "main_path": True, "distributed_launches": [r["launches"]["bottom_sketch"] for r in dist],
+         "bench_launches": bench_launches("bottom_sketch"),
          "sharded_launches": sharded["bottom_sketch"], **db["bottom_sketch"],
          "max_abs_err": max(db["bottom_sketch"]["max_abs_err"],
                             kernels["bottom_sketch"]["max_abs_err"])},

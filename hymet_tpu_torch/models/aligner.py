@@ -287,10 +287,7 @@ class MinimizerAligner:
         def _stage(gi: int):
             if use_staged:
                 return staged.device[gi]
-            batch = build_group_batch(seqs, groups[gi], cfg.batch_pad, k + w, fixed_rows)
-            packed, mask, L = pack_code_batch(batch)
-            return (torch.from_numpy(packed).to(self.dev), torch.from_numpy(mask).to(self.dev),
-                    batch.shape[0], L)
+            return build_group_batch(seqs, groups[gi], cfg.batch_pad, k + w, fixed_rows)
 
         per_query: dict = {i: [] for i in range(len(seqs))}
         # dispatch-ahead: the next `lookahead` groups are enqueued before
@@ -314,9 +311,20 @@ class MinimizerAligner:
 
     # ------------------------------------------------------------------
 
+    def _chains_for_batch(self, batch) -> List[_Chain]:
+        """Dispatch one batch and wait for its chains (see
+        :meth:`_dispatch_batch` for what `batch` may be)."""
+        return self._finish_batch(self._dispatch_batch(batch))
+
     def _dispatch_batch(self, batch):
-        """Enqueue one (packed, mask, rows, L) batch on the device and
-        return a pending handle without waiting for it."""
+        """Enqueue one batch on the device and return a pending handle
+        without waiting for it. `batch` is a staged (packed, mask, rows, L)
+        tuple or a host [B, L] uint8 code array, which is packed there and
+        uploaded."""
+        if not isinstance(batch, tuple):
+            packed, mask, L = pack_code_batch(np.asarray(batch))
+            batch = (torch.from_numpy(packed).to(self.dev), torch.from_numpy(mask).to(self.dev),
+                     packed.shape[0], L)
         _packed, _mask, B, L = batch
         NW, cap = self._minimizer_cap(B, L)
         acap, ccap = self._device_caps(B, NW, cap)

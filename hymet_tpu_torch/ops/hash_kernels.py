@@ -6,9 +6,11 @@ Counterpart of ``hymet_tpu/ops/pallas_kernels.py``:
   path: one staged batch, 2-bit packed, unpacked, hashed, filtered and
   counted in one kernel;
 - :func:`kmer_hashes` (``csrc/kmer_hash.cu``) — the hash of every window
-  of a code batch, the direct counterpart of ``kmer_hashes_pallas`` (no
-  path of the port calls it: the DB build hashes inside
-  :func:`~hymet_tpu_torch.ops.sketch_kernels.sketch_codes`).
+  of a code batch, the direct counterpart of ``kmer_hashes_pallas``: the
+  bench's sketch DB build runs it
+  (:func:`~hymet_tpu_torch.ops.sketch.sketch_batch_topk`); the run's DB
+  build hashes inside
+  :func:`~hymet_tpu_torch.ops.sketch_kernels.sketch_codes`.
 
 Both build on ``csrc/kmer_core.cuh``, as does the DB build's bottom-s
 sketch (:mod:`hymet_tpu_torch.ops.sketch_kernels`). The align stage's

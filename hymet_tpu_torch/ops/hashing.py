@@ -243,6 +243,12 @@ def kmer_hashes_numpy(codes: np.ndarray, k: int, seed: int = SEED) -> np.ndarray
     return murmur3_x64_128_numpy(rows[valid], seed)
 
 
+def pack64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """(hi, lo) 32-bit limbs (any integer dtype holding values below 2^32)
+    -> uint64, on the host."""
+    return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+
+
 def kmer_hashes_host(codes: np.ndarray, k: int) -> np.ndarray:
     """Host k-mer hashing: the native helpers where they built (1 <= k <=
     32), :func:`kmer_hashes_numpy` else. Mash's default seed only (the
@@ -355,3 +361,18 @@ def unpack_code_batch(packed: torch.Tensor, mask: torch.Tensor, L: int) -> torch
     bits = torch.stack([(m >> i) & 1 for i in range(8)], dim=-1).reshape(B, -1)
     codes = torch.where(bits[:, : codes4.shape[1]] == 1, codes4, 4)
     return codes[:, :L].to(torch.uint8)
+
+
+def pack_code_batch_torch(codes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """:func:`hymet_tpu_torch.io.fasta.pack_code_batch` on the device of
+    `codes` ([B, L] uint8): (packed [B, ceil(L/8)*2] uint8, mask
+    [B, ceil(L/8)] uint8, L), the same bytes as the host packer."""
+    B, L = codes.shape
+    Lp = -(-L // 8) * 8
+    c = torch.nn.functional.pad(codes, (0, Lp - L), value=4)
+    valid = c < 4
+    two = torch.where(valid, c, torch.zeros_like(c)).to(torch.int32).reshape(B, -1, 4)
+    packed = (two << torch.arange(0, 8, 2, dtype=torch.int32, device=c.device)).sum(dim=-1)
+    bits = valid.to(torch.int32).reshape(B, -1, 8)
+    mask = (bits << torch.arange(8, dtype=torch.int32, device=c.device)).sum(dim=-1)
+    return packed.to(torch.uint8), mask.to(torch.uint8), L

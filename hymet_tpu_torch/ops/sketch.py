@@ -15,6 +15,11 @@ single-device path).
    containment estimate); median = upper median of the shared hashes'
    counts.
 
+Beside the engine, :func:`sketch_batch_topk` and :func:`finish_bottom_sketch`
+make bottom-s sketches the JAX package's TPU way (the bench's DB build):
+every window hashed by the ``kmer_hashes`` kernel, each row's candidates
+picked on the device by their high limb, the sketch finished on the host.
+
 Hashes are int64 tensors holding uint64 bit patterns, XORed with
 :data:`~hymet_tpu_torch.ops.hashing.SIGN` (``keys``) wherever they are
 sorted, searched or compared.
@@ -23,20 +28,23 @@ sorted, searched or compared.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from hymet_tpu_torch.io.fasta import pack_code_batch
-from hymet_tpu_torch.io.sketchdb import SketchDB
-from hymet_tpu_torch.ops.hash_kernels import screen_count
-from hymet_tpu_torch.ops.hashing import SIGN
+from hymet_tpu_torch.io.sketchdb import PAD_HASH, SketchDB
+from hymet_tpu_torch.ops.hash_kernels import count_hashes, kmer_hashes, screen_count
+from hymet_tpu_torch.ops.hashing import SIGN, pack64, pack_code_batch_torch
 from hymet_tpu_torch.ops.sketch_kernels import sketch_codes
 from hymet_tpu_torch.utils.device import resolve_device
 
 # (packed, mask, L, k, flat, t, counts, total) -> None, as screen_count
 CountFn = Callable[..., None]
+# (codes, k) -> (hash, valid), as kmer_hashes
+HashFn = Callable[[torch.Tensor, int], Tuple[torch.Tensor, torch.Tensor]]
 
 
 def flat_index_device(
@@ -167,14 +175,18 @@ class ScreenEngine:
     """Streaming mash-screen over one SketchDB on one device. Feed query
     code batches; :meth:`finalize` gives per-reference rows.
 
+    ``track_kmers=False`` leaves the query k-mer total at 0 (as in the JAX
+    engine, for benches: the p-values need it, the bench reads none).
     ``count_fn`` counts one packed batch, a test seam: callers leave the
     kernel wrapper; a check passes
     :func:`~hymet_tpu_torch.ops.hash_kernels.screen_count_torch` to
     compare the two on the card."""
 
-    def __init__(self, db: SketchDB, device="cuda", *, count_fn: CountFn = screen_count):
+    def __init__(self, db: SketchDB, device="cuda", *, track_kmers: bool = True,
+                 count_fn: CountFn = screen_count):
         self.device = resolve_device(device)
         self.db = db
+        self.track_kmers = track_kmers
         self.count_fn = count_fn
         self.flat, self.ref_idx = flat_index_device(db.hashes, self.device)
         self.counts = torch.zeros(self.flat.shape[0], dtype=torch.int32, device=self.device)
@@ -183,14 +195,45 @@ class ScreenEngine:
         self._t = int(self.flat[-1]) if self.flat.numel() else None
         self.total_query_kmers = 0
         # valid windows of the batches counted so far, on the device until
-        # finalize()
+        # finalize(); without track_kmers the count goes to a sink never read
         self._total = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self._sink = self._total if track_kmers else torch.zeros_like(self._total)
+
+    def update(self, q_hi, q_lo, q_valid) -> None:
+        """Stream in query hashes given as the JAX engine's uint32 limbs
+        (numpy arrays or tensors of any shape; `q_valid` bool), counted by
+        a search of the flat keys and a scatter-add."""
+        valid = q_valid if torch.is_tensor(q_valid) else torch.from_numpy(np.array(q_valid, bool))
+        valid = valid.to(self.device, torch.bool).reshape(-1)
+        if self._t is None:
+            self._sink += valid.sum()
+            return
+        h = (self._limb(q_hi) << 32) | self._limb(q_lo)
+        count_hashes(h, valid, self.flat, self._t, self.counts, self._sink)
+
+    def _limb(self, x) -> torch.Tensor:
+        """A 32-bit limb as int64 values 0 .. 2^32 - 1, flat."""
+        if not torch.is_tensor(x):
+            x = torch.from_numpy(np.asarray(x, dtype=np.uint32).astype(np.int64))
+        return (x.to(self.device).to(torch.int64) & 0xFFFFFFFF).reshape(-1)
+
+    def update_codes(self, codes: torch.Tensor) -> None:
+        """Stream in a [B, L] uint8 code batch on the engine's device:
+        packed there (:func:`~hymet_tpu_torch.ops.hashing.pack_code_batch_torch`)
+        and counted like a staged batch."""
+        if self._t is None:
+            if self.track_kmers:
+                self._count_kmers_host(codes.cpu().numpy())
+            return
+        packed, mask, L = pack_code_batch_torch(codes)
+        self.update_staged(packed, mask, L)
 
     def update_codes_packed(self, codes: np.ndarray) -> None:
         """Stream in a host [B, L] uint8 batch, shipped 2-bit packed with
         validity bits and unpacked on the device."""
         if self._t is None:
-            self._count_kmers_host(codes)
+            if self.track_kmers:
+                self._count_kmers_host(codes)
             return
         packed, mask, L = pack_code_batch(np.asarray(codes))
         self.update_staged(
@@ -204,7 +247,7 @@ class ScreenEngine:
         staging, pipeline/staged.py)."""
         if self._t is None:
             raise ValueError("staged screen updates need a non-empty DB")
-        self.count_fn(packed, mask, L, self.db.k, self.flat, self._t, self.counts, self._total)
+        self.count_fn(packed, mask, L, self.db.k, self.flat, self._t, self.counts, self._sink)
 
     def _count_kmers_host(self, codes) -> None:
         """Exact valid-window count (empty-DB path only)."""
@@ -292,3 +335,69 @@ def sketch_batch(codes: torch.Tensor, k: int, s: int) -> Tuple[torch.Tensor, tor
     hashes before any padding; the two agree on ``[:n]`` and n. A row
     shorter than k has no window: n = 0."""
     return sketch_codes(codes, k, s)
+
+
+def sketch_batch_topk(
+    codes: torch.Tensor, k: int, cand: int, *, hash_fn: HashFn = kmer_hashes
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bottom-`cand` sketch candidates of each row of a [B, L] uint8 code
+    batch (counterpart of ``hymet_tpu.ops.sketch.sketch_batch_topk``):
+    (cand_hi, cand_lo) int64 [B, min(cand, L-k+1)] holding uint32 limbs,
+    the windows in ascending order of their hash's high limb, an invalid
+    window's limbs both 0xFFFFFFFF. Equal high limbs keep window order, as
+    ``jax.lax.top_k`` keeps the lower index first (an invalid window and a
+    valid one whose high limb is 0xFFFFFFFF tie on purpose).
+
+    The window hashes come from `hash_fn`, the
+    :func:`~hymet_tpu_torch.ops.hash_kernels.kmer_hashes` kernel by
+    default (its plain version for a CPU batch); the selection is a stable
+    sort. :func:`finish_bottom_sketch` turns the candidates into the
+    bottom-s distinct sketch on the host."""
+    h, valid = hash_fn(codes, k)
+    pad = 0xFFFFFFFF
+    key = torch.where(valid, (h >> 32) & pad, pad)
+    lo = torch.where(valid, h & pad, pad)
+    idx = torch.sort(key, dim=1, stable=True).indices[:, : min(cand, key.shape[1])]
+    return torch.gather(key, 1, idx), torch.gather(lo, 1, idx)
+
+
+def finish_bottom_sketch(
+    cand_hi: np.ndarray, cand_lo: np.ndarray, s: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host finish for :func:`sketch_batch_topk` (copy of the JAX
+    package's): per row, pack to uint64, de-duplicate, keep the s
+    smallest. Returns ([B, s] uint64 PAD_HASH-padded, [B] int32 counts).
+
+    Warns (RuntimeWarning) on the rows whose candidates may miss a hash of
+    the true bottom s: a full pool with fewer than s distinct hashes (a
+    repeated low-hash k-mer crowding it), or a full pool whose s-th hash
+    shares its high limb with the pool's last (the selection ordered by
+    that limb alone, so an excluded hash with a smaller low limb could
+    displace it)."""
+    B = cand_hi.shape[0]
+    out = np.full((B, s), PAD_HASH, dtype=np.uint64)
+    n_out = np.zeros(B, dtype=np.int32)
+    saturated = np.zeros(B, dtype=bool)
+    h64 = pack64(np.asarray(cand_hi), np.asarray(cand_lo))
+    for i in range(B):
+        uniq = np.unique(h64[i])
+        uniq = uniq[uniq != PAD_HASH]
+        n = min(len(uniq), s)
+        out[i, :n] = uniq[:n]
+        n_out[i] = n
+        pool_full = bool((h64[i] != PAD_HASH).all())
+        cutoff_tie = (
+            n >= s
+            and pool_full
+            and (out[i, n - 1] >> np.uint64(32)) == (h64[i].max() >> np.uint64(32))
+        )
+        saturated[i] = (n < s and pool_full) or cutoff_tie
+    if saturated.any():
+        warnings.warn(
+            f"sketch_batch_topk candidate pool saturated for rows "
+            f"{np.flatnonzero(saturated).tolist()}; rerun those rows with "
+            "the exact sort path or a larger cand",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+    return out, n_out

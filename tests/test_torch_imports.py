@@ -107,6 +107,10 @@ PARALLEL_MODULES = [
 HOST_MODULES = ["hymet_tpu_torch.io.native_io", "hymet_tpu_torch.io.fasta"]
 
 
+BENCH_MODULES = ["hymet_tpu_torch.bench", "hymet_tpu_torch.harness.deadline",
+                 "hymet_tpu_torch.harness.timing"]
+
+
 _IMPORT_EACH_ALONE = r"""
 import importlib, json, os, sys, traceback
 
@@ -131,7 +135,8 @@ print(json.dumps(results))
 @pytest.fixture(scope="module")
 def alone():
     """Exit code of importing each module of ALIGN_MODULES, RUN_MODULES,
-    CLI_MODULES, EVAL_MODULES, HARNESS_MODULES, PARALLEL_MODULES and HOST_MODULES alone,
+    CLI_MODULES, EVAL_MODULES, HARNESS_MODULES, PARALLEL_MODULES, HOST_MODULES and
+    BENCH_MODULES alone,
     with jax and hymet_tpu blocked (0: imported, pulling in neither), from one interpreter that forks a
     child a module."""
     code = _BLOCKED_IMPORTS.split("import hymet_tpu_torch")[0] + _IMPORT_EACH_ALONE
@@ -139,7 +144,7 @@ def alone():
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", code, *ALIGN_MODULES, *RUN_MODULES,
                           *CLI_MODULES, *EVAL_MODULES, *HARNESS_MODULES, *PARALLEL_MODULES,
-                          *HOST_MODULES],
+                          *HOST_MODULES, *BENCH_MODULES],
                          cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

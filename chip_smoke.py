@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of hymet_tpu_torch on one NVIDIA card (H100).
 
-    python3 chip_smoke.py [--seed N] [--only distributed|bench]
+    python3 chip_smoke.py [--seed N] [--only distributed|bench|profile]
 
 Phases, each printed as one JSON line with its seconds:
 
@@ -241,16 +241,34 @@ Phases, each printed as one JSON line with its seconds:
              hymet_tpu_torch.bench`` in sketch mode must exit 0 with exactly
              one JSON line (the watchdog silent).
 
+16. profile — (run after phase 9) phase 8's run again under
+             ``HYMET_PROFILE=1`` (the run's per-stage torch.profiler
+             traces), in a fresh outdir with a cold cache, so that the align
+             stage builds its index on the card; every launch count set to
+             0 just before, and each stage's launches read around it. Each
+             stage's gzipped Chrome trace (path, bytes); each stage's trace
+             must show every launch of its kernels (``screen_count`` in
+             screen; ``minimizers``, ``anchors``, ``chains`` in align, the
+             index build's ``minimizers`` too; ``lca`` in classify): the
+             activities of the kernel each wrapper call launches once equal
+             the wrapper's count in that stage, and no kernel is launched
+             outside a stage. The selected genomes, PAF, classification and
+             CAMI files must equal phase 8's. Prints the run's seconds and
+             stage split with the profiler and phase 8's without it, and the
+             card's name and power limit.
+
 ``--only distributed`` runs phases 1 and 2, phase 13's run at
 ``db_shards = 4`` alone, and phase 14 (for a call on four cards);
-``--only bench`` runs phases 1, 2 and 15. Either ends with the seconds
-and the nvidia-smi line and prints neither the kernels line nor the
-``{"ok": true, ...}`` line.
+``--only bench`` runs phases 1, 2 and 15; ``--only profile`` phases 1, 2,
+8 and 16. Each ends with the seconds and the nvidia-smi line and prints
+neither the kernels line nor the ``{"ok": true, ...}`` line.
 
 Then the script's seconds (phase "total"), the card's name and power
 limit as nvidia-smi prints them, one JSON line with the kernels' numbers
 (``sharded_launches``: phase 13's run; ``distributed_launches``: phase
-14's, a process each; ``bench_launches``: phase 15's, a mode each; for
+14's, a process each; ``bench_launches``: phase 15's, a mode each;
+``profile_launches`` and ``profile_traced``: phase 16's launches in the
+profiled run's stages and the activities their traces show; for
 ``kmer_hash``, ``launches`` is the bench's sketch DB build), and as the
 last line
 ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -473,14 +491,17 @@ def profile_run(fn, counted=(), lost: int = 0) -> dict:
     the run, or none of it, has lost device activity beyond what the
     caller's checks allow, so fn() runs again under a new trace, at most
     PROFILE_ATTEMPTS times in all, PROFILE_PAUSE_S apart; no whole trace
-    raises. On the H100 the profiler drops a few activities from most
-    traces: 14 or 15 of a map_batch's 16 ``minimizers`` launches showed
-    in each of three traces (its callers pass ANY_LOST), one of 8 lone
-    calls in most traces of 8 (the per-call traces pass 1), and once none
-    of a staged screen's 16 ``screen_count`` launches or of 8 lone
-    ``minimizers`` calls. `launches` gives each kernel's count in the kept
-    run, `traced` the launches its trace shows, and `lost_traces` the
-    traces thrown away, as [name, counted, traced] lists."""
+    raises. On the H100 the profiler loses a trace's first device records
+    and drops those stamped before the trace's start (PERF.md §6): 14 or
+    15 of a map_batch's 16 ``minimizers`` launches showed in each of three
+    traces (its callers pass ANY_LOST), one of 8 lone calls in most traces
+    of 8 (the per-call traces pass 1), and once none of a staged screen's
+    16 ``screen_count`` launches. The run's HYMET_PROFILE traces open with
+    a lead that takes those losses (``pipeline/run.profile_lead``); these
+    do not, as its copies would count among fn()'s activities. `launches`
+    gives each kernel's count in the kept run, `traced` the launches its
+    trace shows, and `lost_traces` the traces thrown away, as [name,
+    counted, traced] lists."""
     from torch.profiler import ProfilerActivity, profile
 
     thrown = []
@@ -1864,7 +1885,8 @@ def phase_run(tmp: str) -> dict:
          cami_rows=sum(1 for ln in open(cami) if not ln.startswith(("#", "@"))),
          classify_profile=prof)
     return {"launches": launches["lca"], "classify_s": run.timings["classify"],
-            "rank_table": rank_table, "batches": batches}
+            "rank_table": rank_table, "batches": batches, "execute_s": run_s,
+            "stage_s": run.timings, "outdir": cfg.outdir}
 
 
 def phase_lca(seed: int, gut: dict, sms: int, clock_hz: float) -> dict:
@@ -1899,6 +1921,104 @@ def phase_lca(seed: int, gut: dict, sms: int, clock_hz: float) -> dict:
          launches_per_classification=len(batches), share_of_classify=ms / 1e3 / gut["classify_s"],
          **stats)
     return stats
+
+
+# by stage of the run, each kernel its trace is held to: its wrapper's
+# name and the kernel that each of the wrapper's calls launches once
+PROFILE_STAGES = {
+    "screen": {"screen_count": "screen_count_kernel"},
+    "align": {"minimizers": "minimizer_tile_kernel", "anchors": "anchor_search_kernel",
+              "chains": "chain_tile_kernel"},
+    "classify": {"lca": "lca_kernel"},
+}
+PROFILE_FILES = ("work/selected_genomes.txt", "work/resultados.paf", "classified_sequences.tsv",
+                 "hymet.contigs.cami.tsv")
+
+
+def trace_kernels(path: str, stage: str) -> tuple:
+    """A stage's gzipped Chrome trace: its kernel activities by name, and
+    how many of the CUDA runtime's launches, copies and memsets inside
+    the ``stage <name>`` span have no device record (matched by
+    correlation id)."""
+    with gzip.open(path, "rt") as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    (span,) = [e for e in events
+               if e.get("cat") == "user_annotation" and e["name"] == f"stage {stage}"]
+    shown = {e["args"]["correlation"] for e in events
+             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    unmatched = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                    and e["name"].startswith(("cudaLaunch", "cudaMemcpy", "cudaMemset"))
+                    and e["ts"] >= span["ts"] and e["args"]["correlation"] not in shown)
+    return Counter(e["name"] for e in events if e.get("cat") == "kernel"), unmatched
+
+
+def phase_profile(tmp: str, gut: dict) -> dict:
+    """Phase 8's run again under HYMET_PROFILE=1, with a fresh outdir and a
+    cold cache (so the align stage builds its index on the card): each
+    stage's trace, its path and size; each kernel's launches in a stage
+    (the wrappers' counts, read around each stage) against the activities
+    its trace shows, which must be equal; no launch outside a stage; the
+    selected genomes, PAF, classification and CAMI files equal to phase
+    8's; the run's seconds with and without the profiler."""
+    t0 = time.perf_counter()
+    cfg = run_config(tmp)
+    cfg.outdir = os.path.join(tmp, "profile_run")
+    cfg.cache_root = os.path.join(tmp, "profile_cache")
+    timed, per_stage = ClassificationRun._timed, {}
+
+    def counted(self, name, fn):
+        before = all_launches()
+        try:
+            return timed(self, name, fn)
+        finally:
+            after = all_launches()
+            per_stage[name] = {k: n - before[k] for k, n in after.items() if n != before[k]}
+
+    with mock.patch.dict(os.environ, {"HYMET_PROFILE": "1"}), \
+            mock.patch.object(ClassificationRun, "_timed", counted):
+        torch.cuda.synchronize()
+        zero_launches()
+        t = time.perf_counter()
+        run = ClassificationRun(cfg, device="cuda")
+        run.execute()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+    total = {k: n for k, n in all_launches().items() if n}
+    in_stages = Counter()
+    for counts in per_stage.values():
+        in_stages.update(counts)
+    if dict(in_stages) != total:
+        raise AssertionError(f"launches outside a traced stage: {total} in all, "
+                             f"{dict(in_stages)} inside the stages")
+    for name in PROFILE_FILES:
+        if not filecmp.cmp(os.path.join(cfg.outdir, name), os.path.join(gut["outdir"], name),
+                           shallow=False):
+            raise AssertionError(f"the profiled run's {name} differs from phase 8's")
+    root = os.path.join(cfg.outdir, "logs", "profile")
+    traces, rows, launches, traced = {}, [], Counter(), Counter()
+    for stage in sorted(os.listdir(root)):
+        (path,) = glob.glob(os.path.join(root, stage, "plugins", "profile", "*", "*.trace.json.gz"))
+        kernels, unmatched = trace_kernels(path, stage)
+        traces[stage] = {"path": os.path.relpath(path, cfg.outdir),
+                         "bytes": os.path.getsize(path), "kernel_activities": sum(kernels.values()),
+                         "runtime_calls_without_device_record": unmatched}
+        for wrapper, kernel in PROFILE_STAGES.get(stage, {}).items():
+            n = per_stage[stage].get(wrapper, 0)
+            shown = sum(c for name, c in kernels.items() if kernel in name)
+            rows.append([stage, wrapper, n, shown])
+            launches[wrapper] += n
+            traced[wrapper] += shown
+    if set(traces) != set(run.timings):
+        raise AssertionError(f"stages {sorted(run.timings)}, traces {sorted(traces)}")
+    short = [row for row in rows if row[2] <= 0 or row[3] != row[2]]
+    if short:
+        raise AssertionError(f"a stage's trace does not show every launch of its kernels "
+                             f"([stage, kernel, launched, traced]): {short}")
+    emit("profile", t0, execute_s=run_s, unprofiled_execute_s=gut["execute_s"],
+         stage_s=run.timings, unprofiled_stage_s=gut["stage_s"], traces=traces,
+         launched_traced=rows, launches_by_stage=per_stage, files_equal=list(PROFILE_FILES),
+         nvidia_smi=nvidia_smi("name,power.limit"))
+    return {"launches": dict(launches), "traced": dict(traced)}
 
 
 SKETCH_WAVE = 4096  # windows a block of csrc/bottom_sketch.cu takes at a time
@@ -3325,22 +3445,24 @@ def all_phases(tmp: str, seed: int, sms: int, clock_hz: float) -> tuple:
     align_stats = phase_align_kernels(seed, cfg, index, staged, combined, sms, clock_hz)
     gut = phase_run(tmp)
     lca_stats = phase_lca(seed, gut, sms, clock_hz)
+    traced = phase_profile(tmp, gut)
     db = phase_db(tmp, sms, clock_hz)
     phase_eval(tmp, seed)
     phase_harness(tmp)
     sharded = phase_sharded(tmp, seed, cfg)
     dist = phase_distributed(tmp)
     bench_ = phase_bench(tmp, seed, sms, clock_hz)
-    return kernels, launches, align_launched, align_stats, gut, lca_stats, db, sharded, dist, bench_
+    return (kernels, launches, align_launched, align_stats, gut, lca_stats, db, sharded, dist,
+            bench_, traced)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["distributed", "bench"],
+    ap.add_argument("--only", choices=["distributed", "bench", "profile"],
                     help="distributed: phases 1 and 2, phase 13's run at db_shards = 4 alone, "
-                         "and phase 14; bench: phases 1, 2 and 15; either prints no kernels "
-                         "line and no ok line")
+                         "and phase 14; bench: phases 1, 2 and 15; profile: phases 1, 2, 8 and "
+                         "16; each prints no kernels line and no ok line")
     ap.add_argument("--worker", nargs=4, metavar=("RANK", "WORLD", "PORT", "DIR"),
                     help=argparse.SUPPRESS)  # one process of phase 14
     args = ap.parse_args()
@@ -3370,9 +3492,11 @@ def main() -> int:
             phase_distributed(tmp)
         elif args.only == "bench":
             phase_bench(tmp, args.seed, sms, clock_mhz * 1e6)
+        elif args.only == "profile":
+            phase_profile(tmp, phase_run(tmp))
         else:
             (kernels, launches, align_launched, align_stats, gut, lca_stats, db, sharded, dist,
-             bench_) = all_phases(tmp, args.seed, sms, clock_mhz * 1e6)
+             bench_, traced) = all_phases(tmp, args.seed, sms, clock_mhz * 1e6)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("total", t_start)
@@ -3383,6 +3507,12 @@ def main() -> int:
     def bench_launches(name: str) -> dict:
         return {mode: r["launches"][name] for mode, r in bench_["modes"].items()}
 
+    def profiled(name: str) -> dict:
+        """Phase 16's launches of the kernel in the profiled run's stages
+        and the activities their traces show."""
+        return {"profile_launches": traced["launches"].get(name, 0),
+                "profile_traced": traced["traced"].get(name, 0)}
+
     print(json.dumps({"kernels": [
         # the DB build's path (phase 10): its launches and its batches' times
         {"name": "sketch_codes", "route": "cuda",
@@ -3391,7 +3521,8 @@ def main() -> int:
          "launches": db["launches"]["sketch_codes"], "main_path": True,
          "distributed_launches": [r["launches"]["sketch_codes"] for r in dist],
          "bench_launches": bench_launches("sketch_codes"),
-         "sharded_launches": sharded["sketch_codes"], **db["sketch_codes"],
+         "sharded_launches": sharded["sketch_codes"], **profiled("sketch_codes"),
+         **db["sketch_codes"],
          "max_abs_err": max(db["sketch_codes"]["max_abs_err"],
                             kernels["sketch_codes"]["max_abs_err"]),
          "library_ms": None},
@@ -3404,7 +3535,7 @@ def main() -> int:
          "db_build_launches": db["launches"]["kmer_hash"], "bench_chunk": bench_["kmer_hash"],
          "distributed_launches": [r["launches"]["kmer_hash"] for r in dist],
          "bench_launches": bench_launches("kmer_hash"),
-         "sharded_launches": sharded["kmer_hash"],
+         "sharded_launches": sharded["kmer_hash"], **profiled("kmer_hash"),
          **db["kmer_hash"], "max_abs_err": max(db["kmer_hash"]["max_abs_err"],
                                                kernels["kmer_hash"]["max_abs_err"]),
          "library_ms": None},
@@ -3413,13 +3544,13 @@ def main() -> int:
          "launches": launches["screen_count"], "main_path": True,
          "distributed_launches": [r["launches"]["screen_count"] for r in dist],
          "bench_launches": bench_launches("screen_count"),
-         "sharded_launches": sharded["screen_count"],
+         "sharded_launches": sharded["screen_count"], **profiled("screen_count"),
          **kernels["screen_count"], "library_ms": None},
         *({"name": name, "route": "cuda", "source": f"hymet_tpu_torch/csrc/{name}.cu",
            "replaces": replaces, "launches": align_launched[name], "main_path": True,
            "sharded_launches": sharded[name],
            "distributed_launches": [r["launches"][name] for r in dist],
-           "bench_launches": bench_launches(name),
+           "bench_launches": bench_launches(name), **profiled(name),
            **align_stats[name]}
           for name, replaces in (
               ("minimizers", "hymet_tpu/ops/minimizer.py:241"),
@@ -3429,13 +3560,14 @@ def main() -> int:
          "replaces": "hymet_tpu/ops/lca.py:40", "launches": gut["launches"], "main_path": True,
          "distributed_launches": [r["launches"]["lca"] for r in dist],
          "bench_launches": bench_launches("lca"),
-         "sharded_launches": sharded["lca"],
+         "sharded_launches": sharded["lca"], **profiled("lca"),
          **lca_stats},
         {"name": "bottom_sketch", "route": "cuda", "source": "hymet_tpu_torch/csrc/bottom_sketch.cu",
          "replaces": "hymet_tpu/ops/sketch.py:919", "launches": db["launches"]["bottom_sketch"],
          "main_path": True, "distributed_launches": [r["launches"]["bottom_sketch"] for r in dist],
          "bench_launches": bench_launches("bottom_sketch"),
-         "sharded_launches": sharded["bottom_sketch"], **db["bottom_sketch"],
+         "sharded_launches": sharded["bottom_sketch"], **profiled("bottom_sketch"),
+         **db["bottom_sketch"],
          "max_abs_err": max(db["bottom_sketch"]["max_abs_err"],
                             kernels["bottom_sketch"]["max_abs_err"])},
     ]}))

@@ -18,6 +18,8 @@ _CODE_LUT = np.full(256, 4, dtype=np.uint8)
 for i, base in enumerate("ACGT"):
     _CODE_LUT[ord(base)] = i
     _CODE_LUT[ord(base.lower())] = i
+# code -> its complement's code; 4 (invalid) stays 4
+_COMP = np.array([3, 2, 1, 0, 4], dtype=np.uint8)
 
 
 def _open_maybe_gzip(path: str):
@@ -58,6 +60,17 @@ def read_fasta(path: str) -> Tuple[List[str], List[bytes]]:
 def encode_seq(seq: bytes) -> np.ndarray:
     """ASCII sequence -> uint8 codes (A=0 C=1 G=2 T=3, other=4)."""
     return _CODE_LUT[np.frombuffer(seq, dtype=np.uint8)]
+
+
+def revcomp_codes(codes: np.ndarray) -> np.ndarray:
+    """The reverse complement of a code array."""
+    return _COMP[codes[::-1]]
+
+
+def pack_2bit(seq: bytes) -> Tuple[np.ndarray, np.ndarray]:
+    """Encode to codes plus a validity mask (True where base is ACGT)."""
+    codes = encode_seq(seq)
+    return codes, codes < 4
 
 
 def read_fasta_codes(path: str) -> Tuple[List[str], List[np.ndarray]]:

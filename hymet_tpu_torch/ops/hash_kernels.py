@@ -135,10 +135,12 @@ def _run_all(cmds, deadline: float) -> str:
     return "".join(outs)
 
 
-def _build(out_dir: Path, so: Path) -> str:
-    """One nvcc a source, all started together, then one link into `so`,
-    all within NVCC_TIMEOUT_S; returns nvcc's output. The objects live in a
-    directory of their own, removed whether the build succeeds or not."""
+def _build(out_dir: Path, so: Path, link_flags=()) -> str:
+    """One nvcc a source, all started together, then one link into `so`
+    (with `link_flags`: tools/profile_loss.py links with ``-cudart
+    shared``), all within NVCC_TIMEOUT_S; returns nvcc's output. The
+    objects live in a directory of their own, removed whether the build
+    succeeds or not."""
     deadline = time.monotonic() + NVCC_TIMEOUT_S
     work = Path(tempfile.mkdtemp(prefix="build", dir=out_dir))
     try:
@@ -147,7 +149,8 @@ def _build(out_dir: Path, so: Path) -> str:
         log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
                         for src, o in zip(cus, objs)], deadline)
         tmp = work / so.name
-        log += _run_all([[_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]],
+        log += _run_all([[_nvcc(), *ARCH_FLAGS, *link_flags, "-shared", "-o", str(tmp),
+                          *map(str, objs)]],
                         deadline)
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     finally:

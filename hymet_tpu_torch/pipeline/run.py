@@ -39,8 +39,21 @@ reference's stage-skip semantics). Each stage's seconds (ending in a
 device synchronize) land in ``timings`` and ``metadata.json``.
 
 ``HYMET_PROFILE_WEIGHT=length`` weights the CAMI profile by contig
-length, as the JAX run does. Not here: the JAX package's ``jax.profiler``
-hook.
+length, as the JAX run does.
+
+``HYMET_PROFILE`` traces each stage: unset or empty, no trace; ``1``, the
+root ``<outdir>/logs/profile``; any other value is the root itself. Each
+stage then runs inside ``torch.profiler.profile`` (host activity, and the
+card's where the run's device is a card; on the card the trace opens with
+a lead, :func:`profile_lead`, so that the stage's first kernels are in
+it, and the stage's closing synchronize is inside it, so that its last
+kernels are) and writes one
+gzipped Chrome trace, ``<root>/<stage>/plugins/profile/<timestamp>/
+<host>.trace.json.gz`` (``<host>.proc<i>`` for process ``i`` of a group),
+the layout of the JAX run's ``jax.profiler`` traces. The stage's seconds
+include the profiler's cost. A trace opens in Perfetto
+(ui.perfetto.dev) or ``chrome://tracing``. A profiler that fails to start
+or to write raises: the run does not go on untraced.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ import json
 import logging
 import os
 import shutil
+import socket
 import time
 
 import torch
@@ -98,6 +112,24 @@ logger = logging.getLogger("hymet_tpu_torch.run")
 # alternating samples. HYMET_RESIDENT_INDEX=0 turns it off.
 _RESIDENT_ALIGNERS: dict = {}
 _RESIDENT_MAX = 2
+
+# HYMET_PROFILE on the card: a stage's trace opens with PROFILE_LEAD_S of
+# one-element copies, PROFILE_LEAD_STEPS of them, before the stage runs.
+# On the H100 torch.profiler loses a trace's first device records (most
+# stage traces lost their first three) and drops a record stamped before
+# the trace's start, and a trace's device stamps sometimes lie before
+# their launches, by up to 76 ms seen (tools/profile_loss.py measures
+# both): the lead's copies take those losses, and its time the early
+# stamps.
+PROFILE_LEAD_S = 0.5
+PROFILE_LEAD_STEPS = 10
+
+
+def profile_lead(device: torch.device) -> None:
+    """The lead of a trace on the card (PROFILE_LEAD_S, PROFILE_LEAD_STEPS)."""
+    for _ in range(PROFILE_LEAD_STEPS):
+        torch.zeros(1, device=device).cpu()
+        time.sleep(PROFILE_LEAD_S / PROFILE_LEAD_STEPS)
 
 # Failures the first-hit fallback must not hide: a kernel that does not
 # build or launch, and the card's own errors.
@@ -245,11 +277,51 @@ class ClassificationRun:
 
     def _timed(self, name: str, fn):
         t0 = time.time()
-        out = fn()
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
+        root = self._profile_root()
+        if root:
+            out = self._profiled(name, os.path.join(root, name), fn)
+        else:
+            out = fn()
+            self._sync_device()
         self.timings[name] = time.time() - t0
         logger.info("[stage %s] %.2fs", name, self.timings[name])
+        return out
+
+    def _sync_device(self) -> None:
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+    def _profile_root(self):
+        """The per-stage trace root that ``HYMET_PROFILE`` names, or None."""
+        flag = os.environ.get("HYMET_PROFILE", "")
+        if not flag:
+            return None
+        if flag == "1":
+            return os.path.join(self.cfg.outdir, "logs", "profile")
+        return flag
+
+    def _profiled(self, name: str, stage_dir: str, fn):
+        """fn() under torch.profiler, its device synchronized inside the
+        window; writes the stage's gzipped Chrome trace under `stage_dir`."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        card = self.dev.type == "cuda"
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])
+        with profile(activities=activities) as prof:
+            if card:
+                profile_lead(self.dev)
+            with record_function(f"stage {name}"):
+                out = fn()
+                self._sync_device()
+        host = socket.gethostname()
+        if self._multihost:
+            host += f".proc{process_index()}"
+        trace_dir = os.path.join(stage_dir, "plugins", "profile",
+                                 time.strftime("%Y_%m_%d_%H_%M_%S"))
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"{host}.trace.json.gz")
+        prof.export_chrome_trace(path)
+        logger.info("[stage %s] trace %s", name, path)
         return out
 
     def _query_contigs(self):

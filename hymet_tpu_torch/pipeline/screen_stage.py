@@ -37,6 +37,20 @@ FALLBACK_THRESHOLD = 0.71  # mash.sh:48
 ScreenRow = Tuple[float, str, int, float, str, str]
 
 
+def screen_queries(
+    db: SketchDB,
+    query_files: Sequence[str],
+    chunk_bp: int = 1 << 20,
+    pvalue_max: float = DEFAULT_PVALUE_MAX,
+    mesh=None,
+    device="cuda",
+) -> List[ScreenRow]:
+    """Stream all query sequences through the screen engine and filter
+    (see :func:`stream_screen`)."""
+    res = stream_screen(db, query_files, chunk_bp=chunk_bp, device=device, mesh=mesh)
+    return screen_rows_filtered(res, pvalue_max)
+
+
 def stream_screen(
     db: SketchDB,
     query_files: Sequence[str],

@@ -13,7 +13,7 @@ import torch
 
 from hymet_tpu_torch.io.sketchdb import load_sketch_db
 from hymet_tpu_torch.ops.sketch import ScreenEngine
-from hymet_tpu_torch.pipeline.screen_stage import run_screen_stage, stream_screen
+from hymet_tpu_torch.pipeline.screen_stage import run_screen_stage, screen_queries, stream_screen
 from hymet_tpu_torch.pipeline.staged import StagedContigs
 from hymet_tpu_torch.utils.device import resolve_device
 
@@ -111,6 +111,11 @@ BENCH_MODULES = ["hymet_tpu_torch.bench", "hymet_tpu_torch.harness.deadline",
                  "hymet_tpu_torch.harness.timing"]
 
 
+# the last public pieces: io's re-exports, screen_queries, the profile hook
+PUBLIC_MODULES = ["hymet_tpu_torch.io", "hymet_tpu_torch.pipeline.screen_stage",
+                  "hymet_tpu_torch.pipeline.run"]
+
+
 _IMPORT_EACH_ALONE = r"""
 import importlib, json, os, sys, traceback
 
@@ -135,8 +140,8 @@ print(json.dumps(results))
 @pytest.fixture(scope="module")
 def alone():
     """Exit code of importing each module of ALIGN_MODULES, RUN_MODULES,
-    CLI_MODULES, EVAL_MODULES, HARNESS_MODULES, PARALLEL_MODULES, HOST_MODULES and
-    BENCH_MODULES alone,
+    CLI_MODULES, EVAL_MODULES, HARNESS_MODULES, PARALLEL_MODULES, HOST_MODULES,
+    BENCH_MODULES and PUBLIC_MODULES alone,
     with jax and hymet_tpu blocked (0: imported, pulling in neither), from one interpreter that forks a
     child a module."""
     code = _BLOCKED_IMPORTS.split("import hymet_tpu_torch")[0] + _IMPORT_EACH_ALONE
@@ -144,7 +149,7 @@ def alone():
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", code, *ALIGN_MODULES, *RUN_MODULES,
                           *CLI_MODULES, *EVAL_MODULES, *HARNESS_MODULES, *PARALLEL_MODULES,
-                          *HOST_MODULES, *BENCH_MODULES],
+                          *HOST_MODULES, *BENCH_MODULES, *PUBLIC_MODULES],
                          cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -212,6 +217,39 @@ def test_host_module_imports_without_jax_or_reference_package(alone, module):
     assert codes[module] == 0, stderr
 
 
+@pytest.mark.parametrize("module", BENCH_MODULES + PUBLIC_MODULES)
+def test_bench_and_public_module_imports_without_jax_or_reference_package(alone, module):
+    """The bench's modules, io's re-exports, the screen stage with
+    screen_queries and the run with its profile hook, each imported alone
+    with jax and hymet_tpu blocked, pull in neither."""
+    codes, stderr = alone
+    assert codes[module] == 0, stderr
+
+
+_LAUNCHER = r"""
+import runpy, sys
+sys.argv = [sys.argv[1], "--help"]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "hymet_tpu")]
+assert not bad, bad
+assert "hymet_tpu_torch.cli" in sys.modules
+"""
+
+
+def test_launcher_runs_without_jax_or_reference_package(tmp_path):
+    """bin/hymet-tpu-torch, run from another directory with jax and
+    hymet_tpu blocked, prints the port's usage and pulls in neither."""
+    code = _BLOCKED_IMPORTS.split("import hymet_tpu_torch")[0] + _LAUNCHER
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_") and k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code, os.path.join(REPO, "bin", "hymet-tpu-torch")],
+                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "usage:" in out.stdout
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible: the default device is usable here")
@@ -235,6 +273,8 @@ def test_entry_points_default_to_the_card(tmp_path):
         run_screen_stage([db], [str(q)], str(tmp_path / "out"))
     with pytest.raises(RuntimeError, match="CUDA"):
         stream_screen(db, [str(q)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        screen_queries(db, [str(q)])
     with pytest.raises(RuntimeError, match="CUDA"):
         ScreenEngine(db)
     with pytest.raises(RuntimeError, match="CUDA"):

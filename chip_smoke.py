@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of hymet_tpu_torch on one NVIDIA card (H100).
 
-    python3 chip_smoke.py [--seed N] [--only distributed|bench|profile]
+    python3 chip_smoke.py [--seed N] [--only distributed|bench|profile|lca]
 
 Phases, each printed as one JSON line with its seconds:
 
@@ -102,10 +102,12 @@ Phases, each printed as one JSON line with its seconds:
 9. lca     — ``weighted_lca``'s kernel against ``weighted_lca_torch``, bit
              for bit (names, depths, float64 confidence bits), on
              :func:`lca_edge_sets` at H = 8 .. 2048 (two seeds: ties on
-             purpose, -1 rows, all-zero rank rows, no name at rank 0) and on
-             the gut classification's batches; its time over those batches,
-             its plain version's, its bound (:func:`lca_bound_ms`) and its
-             share of the classify stage.
+             purpose, -1 rows, all-zero rank rows, no name at rank 0, a
+             stop at each rank 0 .. 7) and on the gut classification's
+             batches; its time on each of those batches and their sum, the
+             launch floor (a one-element in-place add), its plain
+             version's time, its bound (:func:`lca_bound_ms`), its share
+             of the classify stage, and the card's name and power limit.
 10. db      — the user's command line: ``hymet_tpu_torch.cli.main(["sketch",
              ...])`` rebuilds sketch1-3 on the card from
              validation/work_cami_suite/genomes/ (each DB's files in its
@@ -254,14 +256,17 @@ Phases, each printed as one JSON line with its seconds:
              the wrapper's count in that stage, and no kernel is launched
              outside a stage. The selected genomes, PAF, classification and
              CAMI files must equal phase 8's. Prints the run's seconds and
-             stage split with the profiler and phase 8's without it, and the
-             card's name and power limit.
+             stage split with the profiler and phase 8's without it, each
+             stage's lead (its seconds, which the stage's leave out: the
+             stages' sum at most the run's seconds less the leads'), and
+             the card's name and power limit.
 
 ``--only distributed`` runs phases 1 and 2, phase 13's run at
 ``db_shards = 4`` alone, and phase 14 (for a call on four cards);
 ``--only bench`` runs phases 1, 2 and 15; ``--only profile`` phases 1, 2,
-8 and 16. Each ends with the seconds and the nvidia-smi line and prints
-neither the kernels line nor the ``{"ok": true, ...}`` line.
+8 and 16; ``--only lca`` phases 1, 2, 8 and 9. Each ends with the seconds
+and the nvidia-smi line and prints neither the kernels line nor the
+``{"ok": true, ...}`` line.
 
 Then the script's seconds (phase "total"), the card's name and power
 limit as nvidia-smi prints them, one JSON line with the kernels' numbers
@@ -1743,7 +1748,8 @@ def lca_edge_sets(seed: int = 0, big_q: int = 4) -> list:
     padding query (all -1), a tie whose later-seen name's hit comes first,
     all hits on the all-zero row, all on the row without a rank-0 name,
     named hits of weight 0 (a zero total), one hit, a stop at rank 3, and
-    one taxid in every slot."""
+    one taxid in every slot. Last, LCA_STOP_QUERIES queries that stop at
+    each rank g = 0 .. 7 in turn (:func:`lca_stop_queries`)."""
     rng = np.random.default_rng(seed)
     T = 64
     table = np.zeros((T, 8), np.int32)
@@ -1757,6 +1763,8 @@ def lca_edge_sets(seed: int = 0, big_q: int = 4) -> list:
     table[a], table[b] = 11 + 100 * np.arange(8), 12 + 100 * np.arange(8)  # differ at rank 0
     table[c] = table[d] = 13 + 100 * np.arange(8)
     table[d, 3:] += 50  # c and d differ from rank 3 on
+    full = np.concatenate([table, lca_stop_table(T)])
+    stop_rng = np.random.default_rng((seed, 1))
     sets = []
     for H in LCA_BUCKETS:
         Q = 16 if H < 2048 else big_q
@@ -1782,8 +1790,44 @@ def lca_edge_sets(seed: int = 0, big_q: int = 4) -> list:
             rows[i, :m], weights[i, :m], n[i] = np.asarray(r_)[:m], np.asarray(w_)[:m], m
         pad = np.arange(H)[None, :] >= n[:, None]
         rows[pad] = -1  # padding slots keep their weights: -1 ignores them
-        sets.append((f"H={H}", rows, weights, table))
+        stop_rows, stop_weights = lca_stop_queries(stop_rng, H, T)
+        sets.append((f"H={H}", np.concatenate([rows, stop_rows]),
+                     np.concatenate([weights, stop_weights]), full))
     return sets
+
+
+LCA_STOP_QUERIES = 16  # the last queries of each lca_edge_sets batch: 2 a stop rank
+
+
+def lca_stop_table(T: int) -> np.ndarray:
+    """16 rank-table rows after the first T: for each rank g, two rows
+    with no name at g and different names at every other rank."""
+    extra = np.zeros((16, 8), np.int32)
+    for g in range(8):
+        extra[2 * g] = 7001 + 100 * np.arange(8)
+        extra[2 * g + 1] = 7002 + 100 * np.arange(8)
+        extra[2 * g : 2 * g + 2, g] = 0
+    return extra
+
+
+def lca_stop_queries(rng: np.random.Generator, H: int, T: int) -> tuple:
+    """(rows, weights) of LCA_STOP_QUERIES queries over the rows of
+    :func:`lca_stop_table` (at T, T + 1, ...): queries 2g and 2g + 1 stop
+    at rank g, after g ranks whose two names share the weight (each
+    quotient below 1) and before ranks that name both again. Query 2g
+    holds five hits on the two rows with no name at g; query 2g + 1 three,
+    the third on row 3 (named at every rank) with weight 0, so that rank
+    g has a name and a total of 0."""
+    rows = np.full((LCA_STOP_QUERIES, H), -1, np.int32)
+    weights = np.zeros((LCA_STOP_QUERIES, H))
+    for g in range(8):
+        a, b = T + 2 * g, T + 2 * g + 1
+        for i, (r_, w_) in enumerate((
+                ([a, b, a, b, a][:H], rng.random(5) * 10.0 ** rng.uniform(-2, 2, 5)),
+                ([a, b, 3], [*(rng.random(2) + 0.5), 0.0]))):
+            rows[2 * g + i, : len(r_)] = r_
+            weights[2 * g + i, : len(r_)] = np.asarray(w_)[: len(r_)]
+    return rows, weights
 
 
 def lca_bound_ms(batches, rank_table: np.ndarray, sms: int, clock_hz: float) -> tuple:
@@ -1892,8 +1936,10 @@ def phase_run(tmp: str) -> dict:
 def phase_lca(seed: int, gut: dict, sms: int, clock_hz: float) -> dict:
     """``weighted_lca``'s kernel against ``weighted_lca_torch`` on the card,
     bit for bit: chip_smoke's edge sets at H = 8 .. 2048 (two seeds) and
-    the gut classification's bucket batches; then the kernel's time over
-    one gut classification's batches, the plain version's and the bound."""
+    the gut classification's bucket batches; then the kernel's time on
+    each of one gut classification's batches ([Q, H, ms]) and their sum,
+    the launch floor (a one-element in-place add timed the same way), the
+    plain version's time and the bound."""
     t0 = time.perf_counter()
     cases, err = [], 0.0
     for s in (seed, seed + 1):
@@ -1910,15 +1956,20 @@ def phase_lca(seed: int, gut: dict, sms: int, clock_hz: float) -> dict:
         err = max(err, check_equal(f"lca, gut batch {tuple(rows.shape)}",
                                    lca.weighted_lca(rows, w, table), want))
         depths.append(want[1].cpu().numpy())
-    ms = sum(cuda_ms(lambda: lca.weighted_lca(rows, w, table)) for rows, w in batches)
+    per_launch = [cuda_ms(lambda: lca.weighted_lca(rows, w, table)) for rows, w in batches]
+    ms = sum(per_launch)
+    one = torch.zeros(1, device="cuda")
+    floor_ms = cuda_ms(lambda: one.add_(1))  # a minimal launch on the same stream: a yardstick
     plain_ms = sum(cuda_ms(lambda: lca.weighted_lca_torch(rows, w, table), iters=3, warmup=1)
                    for rows, w in batches)
     bound, by = lca_bound_ms([(r, d) for (_q, r, _w), d in zip(gut["batches"], depths)],
                              gut["rank_table"], sms, clock_hz)
     stats = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
              "library_ms": None, "max_abs_err": err}
-    emit("lca", t0, cases=cases, identical=True, gut_batches=[list(r.shape) for r, _w in batches],
-         launches_per_classification=len(batches), share_of_classify=ms / 1e3 / gut["classify_s"],
+    emit("lca", t0, cases=cases, identical=True,
+         gut_batches=[[*r.shape, m] for (r, _w), m in zip(batches, per_launch)],
+         launch_floor_ms=floor_ms, launches_per_classification=len(batches),
+         share_of_classify=ms / 1e3 / gut["classify_s"], nvidia_smi=nvidia_smi("name,power.limit"),
          **stats)
     return stats
 
@@ -1959,7 +2010,9 @@ def phase_profile(tmp: str, gut: dict) -> dict:
     (the wrappers' counts, read around each stage) against the activities
     its trace shows, which must be equal; no launch outside a stage; the
     selected genomes, PAF, classification and CAMI files equal to phase
-    8's; the run's seconds with and without the profiler."""
+    8's; the run's seconds with and without the profiler; each stage's
+    lead (``ClassificationRun.lead_s``), which the stages' seconds must
+    leave out: their sum at most execute's seconds less the leads'."""
     t0 = time.perf_counter()
     cfg = run_config(tmp)
     cfg.outdir = os.path.join(tmp, "profile_run")
@@ -2010,12 +2063,17 @@ def phase_profile(tmp: str, gut: dict) -> dict:
             traced[wrapper] += shown
     if set(traces) != set(run.timings):
         raise AssertionError(f"stages {sorted(run.timings)}, traces {sorted(traces)}")
+    if set(run.lead_s) != set(run.timings):
+        raise AssertionError(f"stages {sorted(run.timings)}, leads {sorted(run.lead_s)}")
+    if sum(run.timings.values()) > run_s - sum(run.lead_s.values()):
+        raise AssertionError(f"the stages' seconds {run.timings} hold the leads' {run.lead_s}: "
+                             f"more than execute's {run_s} s less the leads")
     short = [row for row in rows if row[2] <= 0 or row[3] != row[2]]
     if short:
         raise AssertionError(f"a stage's trace does not show every launch of its kernels "
                              f"([stage, kernel, launched, traced]): {short}")
     emit("profile", t0, execute_s=run_s, unprofiled_execute_s=gut["execute_s"],
-         stage_s=run.timings, unprofiled_stage_s=gut["stage_s"], traces=traces,
+         stage_s=run.timings, lead_s=run.lead_s, unprofiled_stage_s=gut["stage_s"], traces=traces,
          launched_traced=rows, launches_by_stage=per_stage, files_equal=list(PROFILE_FILES),
          nvidia_smi=nvidia_smi("name,power.limit"))
     return {"launches": dict(launches), "traced": dict(traced)}
@@ -3459,10 +3517,11 @@ def all_phases(tmp: str, seed: int, sms: int, clock_hz: float) -> tuple:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["distributed", "bench", "profile"],
+    ap.add_argument("--only", choices=["distributed", "bench", "profile", "lca"],
                     help="distributed: phases 1 and 2, phase 13's run at db_shards = 4 alone, "
                          "and phase 14; bench: phases 1, 2 and 15; profile: phases 1, 2, 8 and "
-                         "16; each prints no kernels line and no ok line")
+                         "16; lca: phases 1, 2, 8 and 9; each prints no kernels line and no ok "
+                         "line")
     ap.add_argument("--worker", nargs=4, metavar=("RANK", "WORLD", "PORT", "DIR"),
                     help=argparse.SUPPRESS)  # one process of phase 14
     args = ap.parse_args()
@@ -3494,6 +3553,8 @@ def main() -> int:
             phase_bench(tmp, args.seed, sms, clock_mhz * 1e6)
         elif args.only == "profile":
             phase_profile(tmp, phase_run(tmp))
+        elif args.only == "lca":
+            phase_lca(args.seed, phase_run(tmp), sms, clock_mhz * 1e6)
         else:
             (kernels, launches, align_launched, align_stats, gut, lca_stats, db, sharded, dist,
              bench_, traced) = all_phases(tmp, args.seed, sms, clock_mhz * 1e6)

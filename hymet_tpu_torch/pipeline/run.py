@@ -51,7 +51,8 @@ kernels are) and writes one
 gzipped Chrome trace, ``<root>/<stage>/plugins/profile/<timestamp>/
 <host>.trace.json.gz`` (``<host>.proc<i>`` for process ``i`` of a group),
 the layout of the JAX run's ``jax.profiler`` traces. The stage's seconds
-include the profiler's cost. A trace opens in Perfetto
+include the profiler's cost and not the lead's (its measured seconds, a
+stage each, are in ``lead_s``). A trace opens in Perfetto
 (ui.perfetto.dev) or ``chrome://tracing``. A profiler that fails to start
 or to write raises: the run does not go on untraced.
 """
@@ -202,6 +203,7 @@ class ClassificationRun:
         self.mesh = self._make_mesh(mesh_devices)
         self.workdir = os.path.join(self.cfg.outdir, "work")
         self.timings = {}
+        self.lead_s = {}  # HYMET_PROFILE on the card: each stage's profile_lead seconds
         self.fallback_ran = False
         self._staged = None  # upload-once contig batches (_stage_contigs)
         self._contigs = None  # (names, seqs) read once for both stages
@@ -276,6 +278,7 @@ class ClassificationRun:
     # ------------------------------------------------------------------
 
     def _timed(self, name: str, fn):
+        self.lead_s.pop(name, None)
         t0 = time.time()
         root = self._profile_root()
         if root:
@@ -283,7 +286,7 @@ class ClassificationRun:
         else:
             out = fn()
             self._sync_device()
-        self.timings[name] = time.time() - t0
+        self.timings[name] = time.time() - t0 - self.lead_s.get(name, 0.0)
         logger.info("[stage %s] %.2fs", name, self.timings[name])
         return out
 
@@ -300,6 +303,11 @@ class ClassificationRun:
             return os.path.join(self.cfg.outdir, "logs", "profile")
         return flag
 
+    def _takes_lead(self) -> bool:
+        """Whether a stage's trace opens with :func:`profile_lead`: on the
+        card, whose profiler loses a trace's first records."""
+        return self.dev.type == "cuda"
+
     def _profiled(self, name: str, stage_dir: str, fn):
         """fn() under torch.profiler, its device synchronized inside the
         window; writes the stage's gzipped Chrome trace under `stage_dir`."""
@@ -308,8 +316,10 @@ class ClassificationRun:
         card = self.dev.type == "cuda"
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])
         with profile(activities=activities) as prof:
-            if card:
+            if self._takes_lead():
+                t = time.time()
                 profile_lead(self.dev)
+                self.lead_s[name] = time.time() - t
             with record_function(f"stage {name}"):
                 out = fn()
                 self._sync_device()

@@ -399,7 +399,8 @@ def test_lca_kernel_matches_plain_bit_for_bit(seed, name):
     """weighted_lca's kernel equals weighted_lca_torch on the card, names,
     depths and float64 confidence bits, at every bucket size
     (chip_smoke.lca_edge_sets: ties on purpose, -1 rows and padding
-    queries, all-zero rank rows, no name at rank 0, zero totals)."""
+    queries, all-zero rank rows, no name at rank 0, zero totals, a stop
+    at each rank)."""
     _need_card()
     from hymet_tpu_torch.ops import lca
 
@@ -426,6 +427,28 @@ def test_lca_kernel_matches_plain_on_random_batches(Q, H):
     w = torch.from_numpy(rng.random((Q, H)) * 10.0 ** rng.uniform(-3, 3, (Q, H))).cuda()
     chip_smoke.check_equal(f"lca [{Q}, {H}]", lca.weighted_lca(rows, w, table),
                            lca.weighted_lca_torch(rows, w, table))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,H", [(1, 8), (3, 32), (1000, 8), (1000, 128), (1, 2048), (3, 2048)])
+def test_lca_kernel_stops_at_every_rank(Q, H):
+    """The edge sets' stop queries (a stop at each rank 0 .. 7, names at
+    the ranks below and above it) repeated or cut to Q queries, a count
+    the launch rounds to nothing: the kernel equals the plain version,
+    and each query's depth is its stop rank."""
+    _need_card()
+    from hymet_tpu_torch.ops import lca
+
+    _name, rows, w, table = next(s for s in chip_smoke.lca_edge_sets(Q) if s[0] == f"H={H}")
+    n = chip_smoke.LCA_STOP_QUERIES
+    pick = np.arange(Q) % n
+    rows, w, table = (torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                      for x in (rows[-n:][pick], w[-n:][pick], table))
+    got = lca.weighted_lca(rows, w, table)
+    want = lca.weighted_lca_torch(rows, w, table)
+    torch.cuda.synchronize()
+    chip_smoke.check_equal(f"lca stops [{Q}, {H}]", got, want)
+    assert want[1].cpu().tolist() == (pick // 2).tolist()
 
 
 @pytest.mark.gpu

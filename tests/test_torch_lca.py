@@ -2,7 +2,8 @@
 ``weighted_lca_torch`` against the jitted JAX ``weighted_lca`` (float64,
 x64 on) at every bucket size, names and depths equal and confidences
 equal bit for bit, on chip_smoke's edge sets (ties on purpose, -1 rows,
-all-zero rank rows, queries with no rank-0 name); ``bucket_pad`` and
+all-zero rank rows, queries with no rank-0 name, a stop at each rank);
+``bucket_pad`` and
 ``weighted_lca_host`` equal; the wrapper's dispatch and checks."""
 
 import jax.numpy as jnp
@@ -41,6 +42,29 @@ def test_plain_lca_matches_jax_bit_for_bit(seed, name):
     np.testing.assert_array_equal(tconf.view(np.int64), jconf.view(np.int64))
     assert set(jn.tolist()) >= {0, 8}  # stops at rank 0 and full depth both occur
     assert (jconf < 1).any()  # confidences that carry the sums' bits
+
+
+@pytest.mark.parametrize("seed,name", list(SETS))
+def test_plain_lca_stops_at_every_rank(seed, name):
+    """The sets' last queries stop at rank g = 0 .. 7, two a rank, after g
+    quotients below 1 and before a rank that names hits again: the JAX
+    program and the port agree there, names, depths and bits."""
+    rows, w, table = SETS[seed, name]
+    rows, w = rows[-chip_smoke.LCA_STOP_QUERIES:], w[-chip_smoke.LCA_STOP_QUERIES:]
+    jc, jn, jconf = _jax(rows, w, table)
+    tc, tn, tconf = _torch(rows, w, table)
+    g = np.repeat(np.arange(8), 2)
+    np.testing.assert_array_equal(jn, g)
+    np.testing.assert_array_equal(tn, jn)
+    np.testing.assert_array_equal(tc, jc)
+    np.testing.assert_array_equal(tconf.view(np.int64), jconf.view(np.int64))
+    assert (jconf[g >= 1] < 1).all() and (jconf[g == 0] == 0).all()
+    named = table[np.maximum(rows, 0)] != 0  # [Q, H, 8]
+    for q, stop in enumerate(g):
+        hits = rows[q] >= 0
+        assert not (named[q, hits, stop] & (w[q, hits] > 0)).any()  # nothing weighs at the stop
+        if stop < 7:
+            assert named[q, hits, stop + 1].all()  # the rank after it names every hit
 
 
 def _hit_order(rows, w, table):

@@ -7,7 +7,9 @@ HYMET_PROFILE=1: the same stage directories under logs/profile/, each of
 the port's holding one gzipped Chrome trace at
 <stage>/plugins/profile/<timestamp>/<host>.trace.json.gz; the port's
 outputs equal to a run without the flag, byte for byte; an explicit root;
-nothing written with the flag unset; a profiler that cannot write raises.
+nothing written with the flag unset; a profiler that cannot write raises;
+a stage's seconds without the trace's lead (a lead forced on the CPU,
+stubbed to sleep 0.3 s, inside the trace before the stage's span).
 Then hymet_tpu_torch.io's re-exports, io.fasta's pack_2bit and
 revcomp_codes, screen_stage.screen_queries (device "cpu") against the JAX
 functions on seeded input, and bin/hymet-tpu-torch."""
@@ -20,6 +22,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -166,6 +169,68 @@ def test_a_trace_that_cannot_be_written_raises(tmp_path, monkeypatch):
     with pytest.raises(OSError, match="cannot write"):
         run._timed("export", lambda: None)
     assert "export" not in run.timings
+
+
+LEAD_S = 0.3  # the stub's sleep
+
+
+@pytest.fixture(scope="module")
+def leads(world, runs, tmp_path_factory):
+    """Two more profiled runs after `runs` (so both are warm), each with a
+    cache of its own: one as the CPU takes it, without a lead, then one
+    with the lead forced and stubbed to sleep LEAD_S inside a
+    ``profile lead`` span; each run's timings and outdir, and the stub's
+    calls with whether the profiler was on."""
+    tmp = tmp_path_factory.mktemp("leads")
+    calls, out = [], {}
+
+    def stub(device):
+        with torch.profiler.record_function("profile lead"):
+            calls.append(torch.autograd.profiler._is_profiler_enabled)
+            time.sleep(LEAD_S)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HYMET_PROFILE", "1")
+        for name in ("none", "lead"):
+            if name == "lead":
+                mp.setattr(TRun, "_takes_lead", lambda self: True)
+                mp.setattr(trun_mod, "profile_lead", stub)
+            run = TRun(_tcfg(world, tmp / name, tmp / f"{name}_cache"), device="cpu")
+            run.execute()
+            out[name] = (run, tmp / name)
+    return out, calls
+
+
+@pytest.mark.parametrize("stage", STAGES)
+def test_stage_seconds_leave_the_lead_out(leads, stage):
+    """A stage's timings value and metadata.json's timings_sec stay within
+    0.2 s of the same stage's without a lead: the 0.3 s lead is not in
+    them (it is in lead_s)."""
+    (none, none_dir), (lead, lead_dir) = leads[0]["none"], leads[0]["lead"]
+    assert none.lead_s == {}
+    assert LEAD_S <= lead.lead_s[stage] < LEAD_S + 0.2
+    assert lead.timings[stage] < none.timings[stage] + 0.2
+    with open(none_dir / "metadata.json") as f:
+        want = json.load(f)["timings_sec"][stage]
+    with open(lead_dir / "metadata.json") as f:
+        assert json.load(f)["timings_sec"][stage] < want + 0.2
+
+
+def test_the_lead_runs_once_a_stage_inside_its_trace(leads):
+    """The stub ran once a stage with the profiler on, and each stage's
+    trace holds its ``profile lead`` span, ended before ``stage <name>``
+    begins."""
+    (_run, lead_dir), calls = leads[0]["lead"], leads[1]
+    assert len(calls) == len(STAGES) and all(calls)
+    for stage in STAGES:
+        (path,) = glob.glob(str(lead_dir / "logs" / "profile" / stage / "plugins" / "profile"
+                                / "*" / "*.trace.json.gz"))
+        with gzip.open(path, "rt") as f:
+            spans = {e["name"]: e for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X" and e.get("cat") == "user_annotation"}
+        lead, body = spans["profile lead"], spans[f"stage {stage}"]
+        assert lead["dur"] >= LEAD_S * 1e6 * 0.99
+        assert lead["ts"] + lead["dur"] <= body["ts"]
 
 
 # ---------------------------------------------------------------------
